@@ -1,0 +1,143 @@
+"""Public entry points of the port's stencil kernels.
+
+Every entry point takes ``(spec, state, coeffs, n_steps [, plan params])``
+with `coeffs` in the op's packed convention (`core.ir.split_coeffs`). The
+tensors' device picks the executor: CUDA tensors run the hand-written
+kernel (`kernels.stencil_mwd.run_kernel`), CPU tensors its plain PyTorch
+version. Problems are built on a device with
+`core.stencils.make_problem(..., device=...)`.
+
+Only the MWD advance and the naive oracle are ported so far; the spatial
+and ghost-zone baselines of the reference wait for their kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import ir, precision
+from repro_torch.core.mwd import MWDPlan
+from repro_torch.core.stencils import StencilSpec
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import stencil_mwd
+
+ref = _ref
+
+# ops.mwd's own defaults; what plan="auto" resolves to until the port has a
+# plan registry and tuner
+DEFAULT_PLAN = MWDPlan(d_w=8, n_f=2, fused=True)
+
+
+def resolve_plan(spec: StencilSpec, state, plan, batch: int = 1) -> MWDPlan:
+    """Turn `ops.mwd`'s `plan=` argument into a concrete `MWDPlan`.
+
+    `plan` may be an `MWDPlan` (used as-is) or ``"auto"``. The port has no
+    plan registry or tuner yet, so ``"auto"`` resolves to `DEFAULT_PLAN`
+    (``d_w=8, n_f=2, fused=True``, the defaults of `mwd`) for every op,
+    grid and batch size; its plan source is ``"default"``.
+    """
+    if isinstance(plan, MWDPlan):
+        return plan
+    if plan != "auto":
+        raise ValueError(f"plan must be an MWDPlan or 'auto', got {plan!r}")
+    return DEFAULT_PLAN
+
+
+def _split_coeffs(spec: StencilSpec, coeffs):
+    arrays, scalars = ir.split_coeffs(spec, coeffs)
+    return arrays, tuple(float(x) for x in scalars)
+
+
+def mwd(spec: StencilSpec, state, coeffs, n_steps: int,
+        d_w: int = 8, n_f: int = 2, fused: bool = True,
+        plan: MWDPlan | str | None = None, dtype=None, acc="auto"):
+    """Multi-threaded wavefront diamond blocking: advance `n_steps`.
+
+    fused=True runs every diamond row on one pair of padded grids;
+    fused=False materializes fresh grids per row (the reference's per-row
+    mode). Both are bitwise equal.
+
+    plan: an `MWDPlan` overriding (d_w, n_f, fused), or ``"auto"``
+    (`resolve_plan`).
+
+    dtype: optional stream dtype (e.g. ``"bf16"``); state and coefficient
+    streams are cast before the launch. acc: accumulator policy,
+    ``"auto"`` (f32 for sub-32-bit streams), ``"native"`` or a dtype.
+    """
+    if dtype is not None:
+        dt = precision.parse_dtype(dtype)
+        state = tuple(s.to(dt) for s in state)
+    if plan is not None:
+        p = resolve_plan(spec, state, plan)
+        d_w, n_f, fused = p.d_w, p.n_f, p.fused
+    arrays, scalars = _split_coeffs(spec, coeffs)
+    if dtype is not None and arrays is not None:
+        arrays = arrays.to(dt)
+    acc_dt = precision.resolve_acc(state[0].dtype, acc)
+    return stencil_mwd.mwd_run(spec, state, arrays, scalars, n_steps,
+                               d_w=d_w, n_f=n_f, fused=fused,
+                               acc_dtype=acc_dt)
+
+
+def mwd_batched(spec: StencilSpec, states, coeffs, n_steps: int,
+                d_w: int = 8, n_f: int = 2, fused: bool = True,
+                plan: MWDPlan | str | None = None, dtype=None, acc="auto"):
+    """Advance B independent same-shaped grids in the same launches.
+
+    `states` is a sequence of B ``(cur, prev)`` pairs or an already-stacked
+    pair of ``(B, nz, ny, nx)`` tensors; `coeffs` is a **list** of B packed
+    coefficient sets (array streams batch, scalars must be shared) or one
+    packed set applied to every request. Returns batched ``(cur, prev)``,
+    bitwise equal to a per-item `mwd` loop.
+
+    A batch whose members disagree on dtype is refused unless `dtype=` is
+    given: stacking would silently promote every member.
+    """
+    dt = precision.parse_dtype(dtype) if dtype is not None else None
+    if (isinstance(states, (tuple, list)) and len(states) == 2
+            and getattr(states[0], "ndim", 0) == 4):
+        cur, prev = states
+        if dt is not None:
+            cur, prev = cur.to(dt), prev.to(dt)
+    else:
+        member_dts = ({s[0].dtype for s in states}
+                      | {s[1].dtype for s in states})
+        if dt is None and len(member_dts) > 1:
+            raise ValueError(
+                f"{spec.name}: mixed-dtype batch "
+                f"{sorted(str(d) for d in member_dts)} — stacking would "
+                f"silently promote; pass dtype= to cast explicitly or "
+                f"batch per dtype")
+        cur = torch.stack([s[0] for s in states])
+        prev = torch.stack([s[1] for s in states])
+        if dt is not None:
+            cur, prev = cur.to(dt), prev.to(dt)
+    b = cur.shape[0]
+    if plan is not None:
+        p = resolve_plan(spec, (cur[0],), plan, batch=b)
+        d_w, n_f, fused = p.d_w, p.n_f, p.fused
+    if isinstance(coeffs, list):        # per-request packed coefficients
+        if len(coeffs) != b:
+            raise ValueError(f"{spec.name}: got {len(coeffs)} coefficient "
+                             f"sets for a batch of {b}")
+        arrays, scalars = ir.split_coeffs_batch(spec, coeffs)
+    else:                       # one packed set shared by the whole batch
+        arrays, scalars = _split_coeffs(spec, coeffs)
+        if arrays is not None:
+            arrays = (arrays,) * b
+    if arrays is not None:
+        arrays = torch.stack(arrays)
+        if dt is not None:
+            arrays = arrays.to(dt)
+    acc_dt = precision.resolve_acc(cur.dtype, acc)
+    return stencil_mwd.mwd_run_batched(spec, (cur, prev), arrays, scalars,
+                                       n_steps, d_w=d_w, n_f=n_f,
+                                       fused=fused, acc_dtype=acc_dt)
+
+
+def naive(spec: StencilSpec, state, coeffs, n_steps: int):
+    """Un-blocked reference (paper Fig. 1a), plain PyTorch on any device."""
+    return _ref.naive_steps(spec, state, coeffs, n_steps)
+
+
+METHODS = {"naive": naive, "mwd": mwd}

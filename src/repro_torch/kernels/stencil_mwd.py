@@ -1,0 +1,326 @@
+"""K1: the MWD advance, as a hand-written CUDA kernel plus its plain version.
+
+The port of `repro.kernels.stencil_mwd`. The host side is the reference's
+`_mwd_run_impl`, carried over exactly: `sync_dirichlet_frame` on prev, the
+``2R | d_w`` and ``n_f | d_w`` checks, edge padding ``pz = R``,
+``py = 2*D_w + R``, ``px = R`` with z padded up to ``n_j * N_F``, the
+compiled schedule tables, the ``n_steps = 0`` identity, and the crop and
+parity pick at the end.
+
+Two executors consume the padded parity grids and the tables:
+
+* `run_kernel` launches ``csrc/mwd.cu`` (one launch per diamond row, one
+  thread block per tile and batch entry, wavefront loop inside, in place in
+  global memory). It takes CUDA tensors only and raises on anything else.
+* `run_plain` walks the same tables tile by tile in row-major order with
+  torch slicing, each span over the whole z extent. The CPU path uses it;
+  on the card only the chip check calls it, to hold the kernel against it.
+
+The dispatch is by the tensors' device and nothing else: CUDA tensors go to
+the kernel or the call raises, CPU tensors go to the plain version.
+
+Modes: ``fused=True`` runs every row on one pair of padded grids and skips
+the tiles that own no span; ``fused=False`` copies both grids before each
+row and runs every tile (the reference's per-row pass). Both come out
+bitwise equal. A leading batch axis runs B independent grids in the same
+launches, bitwise equal to a per-item loop.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import ir, tiling
+from repro_torch.core import stencils as st
+from repro_torch.core.mwd import sync_dirichlet_frame
+from repro_torch.kernels import _build
+
+
+@dataclasses.dataclass
+class LaunchCounter:
+    """Plain count of kernel launches, so a run can show it used the kernel."""
+
+    count: int = 0
+
+
+LAUNCHES = LaunchCounter()
+
+_TYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
+               torch.float16: 3}
+
+
+@dataclasses.dataclass
+class Job:
+    """One MWD advance, prepared for an executor.
+
+    `bufs` are the padded parity grids ``([B,] nz_tot, nyp, nxp)`` (even,
+    odd) and `coeff` the padded stacked streams ``([B,] A, nz_tot, nyp,
+    nxp)``; both executors update `bufs` in place (per-row mode swaps in
+    fresh copies per row). `bufs` is None when the schedule is empty
+    (``n_steps == 0``); `cur`/`prev` then are the result.
+    """
+
+    op: ir.StencilOp
+    cur: torch.Tensor
+    prev: torch.Tensor               # frame-synced
+    n_steps: int
+    bufs: list | None = None
+    coeff: torch.Tensor | None = None
+    scalars: tuple[float, ...] = ()
+    comp: tiling.CompiledSchedule | None = None
+    bounds: tuple[int, ...] = ()     # padded interior lo_z, hi_z, lo_y, ...
+    pads: tuple[int, int, int] = (0, 0, 0)
+    n_f: int = 1
+    n_j: int = 0
+    fused: bool = True
+    acc_dtype: torch.dtype | None = None
+
+
+def _edge_pad(a: torch.Tensor, pads) -> torch.Tensor:
+    """Edge-pad the trailing (z, y, x) axes; ``pads = ((lo, hi),) * 3``.
+
+    The same values as ``jnp.pad(mode="edge")``, for any leading axes.
+    """
+    (z0, z1), (y0, y1), (x0, x1) = pads
+    nz, ny, nx = a.shape[-3:]
+    out = a.new_empty(a.shape[:-3] + (z0 + nz + z1, y0 + ny + y1,
+                                      x0 + nx + x1))
+    zs, ys = slice(z0, z0 + nz), slice(y0, y0 + ny)
+    out[..., zs, ys, x0:x0 + nx] = a
+    out[..., zs, ys, :x0] = a[..., :, :, :1]
+    out[..., zs, ys, x0 + nx:] = a[..., :, :, -1:]
+    out[..., zs, :y0, :] = out[..., zs, y0:y0 + 1, :]
+    out[..., zs, y0 + ny:, :] = out[..., zs, y0 + ny - 1:y0 + ny, :]
+    out[..., :z0, :, :] = out[..., z0:z0 + 1, :, :]
+    out[..., z0 + nz:, :, :] = out[..., z0 + nz - 1:z0 + nz, :, :]
+    return out
+
+
+def prepare(spec: st.StencilSpec, state, arrays, scalars, n_steps: int, *,
+            d_w: int, n_f: int, fused: bool, interior=None, y_domain=None,
+            acc_dtype=None) -> Job:
+    """Checks, frame sync, padding and schedule tables of one advance.
+
+    `state` is ``(cur, prev)`` with optional leading batch axis, `arrays`
+    the stacked coefficient streams (or None, leading batch axis when
+    batched), `scalars` the op's scalar tuple. `interior` is
+    ``[lo_z, hi_z, lo_y, hi_y, lo_x, hi_x]`` in grid coordinates (default:
+    the R-deep Dirichlet frame); `y_domain` the tessellation's y extent
+    (default ``(R, ny - R)``).
+    """
+    cur, prev = state
+    if acc_dtype is not None and acc_dtype == cur.dtype:
+        acc_dtype = None                # native accumulation: no casts
+    r = spec.radius
+    if d_w % (2 * r) or d_w % n_f:
+        raise ValueError(f"need 2R | d_w and n_f | d_w (d_w={d_w}, R={r}, "
+                         f"n_f={n_f})")
+    if prev.shape != cur.shape or prev.dtype != cur.dtype:
+        raise ValueError(f"cur {tuple(cur.shape)}/{cur.dtype} and prev "
+                         f"{tuple(prev.shape)}/{prev.dtype} disagree")
+    if arrays is not None:
+        want = cur.shape[:-3] + (spec.n_coeff_arrays,) + cur.shape[-3:]
+        if tuple(arrays.shape) != tuple(want) or arrays.dtype != cur.dtype:
+            raise ValueError(f"{spec.name}: coefficient streams "
+                             f"{tuple(arrays.shape)}/{arrays.dtype}, want "
+                             f"{tuple(want)}/{cur.dtype}")
+    for t in (prev,) + (() if arrays is None else (arrays,)):
+        if t.device != cur.device:
+            raise ValueError(f"tensors on {t.device} and {cur.device}")
+    prev = sync_dirichlet_frame(cur, prev, r)
+    nz, ny, nx = cur.shape[-3:]
+    y_lo, y_hi = y_domain if y_domain is not None else (r, ny - r)
+    comp = tiling.compile_schedule(
+        tiling.make_diamond_schedule(d_w, r, n_steps, y_lo, y_hi))
+    job = Job(op=spec, cur=cur, prev=prev, n_steps=n_steps)
+    if comp.n_rows == 0:                 # n_steps == 0: nothing to launch
+        return job
+    if interior is None:
+        interior = (r, nz - r, r, ny - r, r, nx - r)
+    interior = tuple(int(v) for v in interior)
+    for ax, n in enumerate((nz, ny, nx)):
+        if not 0 <= interior[2 * ax] <= interior[2 * ax + 1] <= n:
+            raise ValueError(f"interior {interior} leaves the grid "
+                             f"{(nz, ny, nx)}")
+    pz, px, py = r, r, 2 * d_w + r
+    n_j = -(-(pz + nz + d_w) // n_f)
+    pads = ((pz, n_j * n_f - nz - pz), (py, py), (px, px))
+    job.bufs = [_edge_pad(cur, pads), _edge_pad(prev, pads)]
+    job.coeff = _edge_pad(arrays, pads) if spec.n_coeff_arrays else None
+    job.scalars = tuple(float(x) for x in scalars)
+    job.comp = comp
+    job.bounds = tuple(v + p for v, p in zip(interior,
+                                             (pz, pz, py, py, px, px)))
+    job.pads = (pz, py, px)
+    job.n_f, job.n_j, job.fused, job.acc_dtype = n_f, n_j, fused, acc_dtype
+    return job
+
+
+def finish(job: Job) -> tuple[torch.Tensor, torch.Tensor]:
+    """Crop the padded grids and pick the parities: ``(cur, prev)``."""
+    if job.bufs is None:
+        return job.cur, job.prev
+    pz, py, px = job.pads
+    nz, ny, nx = job.cur.shape[-3:]
+    core = (..., slice(pz, pz + nz), slice(py, py + ny), slice(px, px + nx))
+    p = job.n_steps % 2
+    return (job.bufs[p][core].contiguous(),
+            job.bufs[1 - p][core].contiguous())
+
+
+def run_plain(job: Job) -> None:
+    """The plain PyTorch version of the kernel: same tables, row-major tiles."""
+    comp, op = job.comp, job.op
+    lo_z, hi_z, lo_y, hi_y, lo_x, hi_x = job.bounds
+    py = job.pads[1]
+    for i in range(comp.n_rows):
+        if not job.fused:
+            job.bufs = [b.clone() for b in job.bufs]
+        p0 = int(comp.parity[i])
+        for k in range(comp.n_tiles):
+            if job.fused and not comp.active[i, k]:
+                continue
+            for tau in range(comp.t_steps):
+                ya = max(int(comp.y0[i, k, tau]) + py, lo_y)
+                yb = min(int(comp.y1[i, k, tau]) + py, hi_y)
+                if yb <= ya or hi_z <= lo_z or hi_x <= lo_x:
+                    continue
+                p = (p0 + tau) % 2
+                src, dst = job.bufs[p], job.bufs[1 - p]
+                dst[..., lo_z:hi_z, ya:yb, lo_x:hi_x] = ir.sweep_region(
+                    op, src, dst, job.coeff, job.scalars, (lo_z, ya, lo_x),
+                    (hi_z, yb, hi_x), job.acc_dtype)
+
+
+def _op_tables(op: ir.StencilOp, scalars, sz: int, sy: int):
+    """Tap offsets, group descriptors and const values for the launcher."""
+    taps, groups, values = [], [], []
+    for coeff, members in op.groups:
+        taps += [t.dz * sz + t.dy * sy + t.dx for t in members]
+        groups += [len(members), int(coeff.kind == "array"), coeff.index]
+        values.append(scalars[coeff.index] if coeff.kind == "const" else 0.0)
+    scale = op.scale
+    groups += ([-1, 0] if scale is None
+               else [int(scale.kind == "array"), scale.index])
+    values.append(scalars[scale.index]
+                  if scale is not None and scale.kind == "const" else 0.0)
+    return (np.asarray(taps, np.int64), np.asarray(groups, np.int32),
+            np.asarray(values, np.float64))
+
+
+def _ptr(a: np.ndarray) -> ctypes.c_void_p:
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+@functools.lru_cache(maxsize=None)
+def _mwd_lib() -> ctypes.CDLL:
+    """The built ``csrc/mwd.cu`` with its launcher's C signature declared."""
+    lib = _build.load("mwd").lib
+    lib.mwd_rows.restype = ctypes.c_int
+    lib.mwd_rows.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.mwd_error_string.restype = ctypes.c_char_p
+    lib.mwd_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def run_kernel(job: Job) -> None:
+    """Launch the CUDA kernel on the job's CUDA tensors, one launch per row."""
+    bufs = job.bufs
+    dev = bufs[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"run_kernel wants CUDA tensors, got {dev}")
+    dt = bufs[0].dtype
+    acc = job.acc_dtype if job.acc_dtype is not None else dt
+    if dt not in _TYPE_CODES or acc not in _TYPE_CODES:
+        raise ValueError(f"the MWD kernel has no {dt}/{acc} variant")
+    comp, op = job.comp, job.op
+    nz_tot, nyp, nxp = bufs[0].shape[-3:]
+    batch = bufs[0].numel() // (nz_tot * nyp * nxp)
+    sz, sy = nyp * nxp, nxp
+    taps, groups, values = _op_tables(op, job.scalars, sz, sy)
+    py = job.pads[1]
+    tables = torch.from_numpy(np.concatenate([
+        comp.parity, (comp.y0 + py).ravel(), (comp.y1 + py).ravel(),
+        comp.active.ravel()]).astype(np.int32)).to(dev)
+    geo = np.asarray([
+        nz_tot * nyp * nxp, sz, sy, op.n_coeff_arrays, job.n_j, job.n_f,
+        op.radius, comp.t_steps, comp.n_tiles, *job.bounds, int(job.fused)],
+        np.int64)
+    lib = _mwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(row_begin: int, row_end: int) -> None:
+        for t in job.bufs + ([job.coeff] if job.coeff is not None else []):
+            if not t.is_contiguous() or t.device != dev or t.dtype != dt:
+                raise ValueError("MWD kernel inputs must be contiguous "
+                                 f"{dt} tensors on {dev}")
+        rc = lib.mwd_rows(
+            _TYPE_CODES[dt], _TYPE_CODES[acc], job.bufs[0].data_ptr(),
+            job.bufs[1].data_ptr(),
+            job.coeff.data_ptr() if job.coeff is not None else None,
+            _ptr(geo), _ptr(taps), len(taps), _ptr(groups), _ptr(values),
+            len(op.groups), op.time_order, tables.data_ptr(), comp.n_rows,
+            row_begin, row_end, batch, dev.index, stream)
+        if rc != 0:
+            raise RuntimeError(f"MWD kernel launch failed ({rc}): "
+                               f"{lib.mwd_error_string(rc).decode()}")
+        LAUNCHES.count += row_end - row_begin
+
+    if job.fused:
+        launch(0, comp.n_rows)
+    else:
+        for i in range(comp.n_rows):
+            job.bufs = [b.clone() for b in job.bufs]
+            launch(i, i + 1)
+
+
+def run(job: Job) -> tuple[torch.Tensor, torch.Tensor]:
+    """Execute a prepared job on its tensors' device and crop the result."""
+    if job.bufs is not None:
+        if job.bufs[0].is_cuda:
+            run_kernel(job)
+        else:
+            run_plain(job)
+    return finish(job)
+
+
+def mwd_run(spec: st.StencilSpec, state, arrays, scalars, n_steps: int, *,
+            d_w: int = 8, n_f: int = 2, fused: bool = True,
+            interior=None, y_domain: tuple[int, int] | None = None,
+            acc_dtype=None):
+    """Advance n_steps with the MWD schedule: state -> state.
+
+    `arrays` is the op's stacked ``(A, z, y, x)`` coefficient stream (or
+    None) and `scalars` its scalar tuple. `interior` (grid coordinates) and
+    `y_domain` are runtime values, as the distributed stepper needs them.
+    `acc_dtype` optionally decouples the accumulator from the stream dtype.
+    """
+    return run(prepare(spec, state, arrays, scalars, n_steps, d_w=d_w,
+                       n_f=n_f, fused=fused, interior=interior,
+                       y_domain=y_domain, acc_dtype=acc_dtype))
+
+
+def mwd_run_batched(spec: st.StencilSpec, state, arrays, scalars,
+                    n_steps: int, *, d_w: int = 8, n_f: int = 2,
+                    fused: bool = True, acc_dtype=None):
+    """Advance B independent same-shaped grids together: state -> state.
+
+    `state` is ``(cur, prev)`` of shape ``(B, nz, ny, nx)`` and `arrays`
+    ``(B, A, nz, ny, nx)`` (or None); one scalar tuple is shared by every
+    entry. Each launch runs every entry (thread blocks along the batch),
+    bitwise equal to a per-item `mwd_run` loop.
+    """
+    cur = state[0]
+    if cur.ndim != 4:
+        raise ValueError(f"mwd_run_batched wants (B, nz, ny, nx) states, "
+                         f"got shape {tuple(cur.shape)}")
+    return run(prepare(spec, state, arrays, scalars, n_steps, d_w=d_w,
+                       n_f=n_f, fused=fused, acc_dtype=acc_dtype))

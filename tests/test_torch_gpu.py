@@ -1,0 +1,88 @@
+"""K1 on the card against its plain PyTorch version (skips without a GPU).
+
+Run on a CUDA machine with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
+This file imports only the port, so it runs where JAX is not installed.
+"""
+
+import pytest
+import torch
+
+from repro_torch.core import ir as tir
+from repro_torch.core import stencils as tst
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import stencil_mwd as tkern
+
+
+def aniso11(irmod):
+    """README's custom op: variable z/y star + radius-3 constant x star."""
+    taps = [irmod.Tap(0, 0, 0, irmod.array(0)),
+            irmod.Tap(-1, 0, 0, irmod.array(1)),
+            irmod.Tap(1, 0, 0, irmod.array(1)),
+            irmod.Tap(0, -1, 0, irmod.array(2)),
+            irmod.Tap(0, 1, 0, irmod.array(2))]
+    taps += [irmod.Tap(0, 0, s * d, irmod.const(d - 1))
+             for d in (1, 2, 3) for s in (1, -1)]
+    return irmod.StencilOp("aniso11", tuple(taps),
+                           default_scalars=(0.08, 0.04, 0.02))
+
+
+def assert_bitwise(a, b):
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x, y)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the MWD kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _kernel_vs_plain(spec, state, arrays, scalars, n_steps, **kw):
+    """Run the kernel and the plain version on identical padded inputs."""
+    jobs = [tkern.prepare(spec, state, arrays, scalars, n_steps, **kw)
+            for _ in range(2)]
+    tkern.run_kernel(jobs[0])
+    tkern.run_plain(jobs[1])
+    torch.cuda.synchronize()
+    return tkern.finish(jobs[0]), tkern.finish(jobs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(tst.SPECS) + ["aniso11"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_kernel_bitwise_equals_plain_version_f32(cuda, name, fused):
+    spec = aniso11(tir) if name == "aniso11" else tst.SPECS[name]
+    d_w = 12 if name == "aniso11" else 8
+    state, coeffs = tst.make_problem(spec, (24, 40, 36), seed=1, device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    got, want = _kernel_vs_plain(spec, state, arrays, scalars, 6, d_w=d_w,
+                                 n_f=2, fused=fused)
+    assert_bitwise(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["bf16", "fp16"])
+def test_kernel_reduced_precision_equals_plain_version(cuda, dt):
+    spec = tst.SPECS["7pt-var"]
+    state, coeffs = tst.make_problem(spec, (24, 40, 36), dtype=dt, seed=2,
+                                     device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    for acc in (torch.float32, None):
+        got, want = _kernel_vs_plain(spec, state, arrays, scalars, 6, d_w=8,
+                                     n_f=2, fused=True, acc_dtype=acc)
+        assert_bitwise(got, want)
+
+
+@pytest.mark.gpu
+def test_kernel_batched_equals_per_item_loop(cuda):
+    spec = tst.SPECS["25pt-var"]
+    probs = [tst.make_problem(spec, (20, 34, 24), seed=s, device=cuda)
+             for s in (0, 1)]
+    before = tkern.LAUNCHES.count
+    cur, prev = tops.mwd_batched(spec, [p[0] for p in probs],
+                                 [p[1] for p in probs], 5)
+    assert tkern.LAUNCHES.count > before
+    for i, (state, coeffs) in enumerate(probs):
+        assert_bitwise((cur[i], prev[i]), tops.mwd(spec, state, coeffs, 5))
