@@ -21,10 +21,19 @@ failure so the script exits non-zero:
 4. serving: serve_stencil("7pt-var", 512^3, 8 steps, 4 requests,
    max_batch=2), every response bitwise equal to its own sequential
    ops.mwd, with K1's launch count read around the serving run, and K1
-   against its plain version at the serving batch's shape (B=2, 512^3).
+   against its plain version at the serving batch's shape (B=2, 512^3);
+5. the baselines: K2 (the spatial sweep) and K3 (the ghost-zone pass)
+   against their plain versions at the mid-size grid and at a grid that is
+   not a multiple of bz/by, for the four paper ops and aniso11 (f32
+   bitwise, native bf16 within op.tolerance, n_steps=0, a t_block that does
+   not divide n_steps); then ops.spatial and ops.ghostzone at 512^3 x 8
+   steps with default parameters against ops.naive, K2 and K3 against
+   their plain versions on the same inputs, their times by CUDA events
+   beside their bounds, and F.conv3d as K2's library yardstick (7pt-const).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+Before the last line come one `baseline` JSON line per (op, method) and a
+JSON object with one entry per kernel; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result. It imports nothing of JAX.
 """
@@ -85,11 +94,16 @@ def same(a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
 
 
-def bound(op, grid, n_steps, batch=1, word=4):
-    """Least time (ms) for the work: compulsory bytes vs f32 flops."""
+def bound(op, grid, n_steps, *, passes=1, outputs=2, batch=1, word=4):
+    """Least time (ms) for the work: compulsory bytes vs f32 flops.
+
+    Each of `passes` launches reads every input stream once and writes
+    `outputs` grids: K1 is one pass writing both levels, K2 one pass per
+    step writing one grid, K3 one pass per t_block steps writing two.
+    """
     cells = batch * grid[0] * grid[1] * grid[2]
     inputs = 1 + (op.time_order == 2) + op.n_coeff_arrays
-    t_bytes = (inputs + 2) * cells * word / HBM_BPS
+    t_bytes = passes * (inputs + outputs) * cells * word / HBM_BPS
     t_ops = op.flops_per_lup * cells * n_steps / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -113,18 +127,38 @@ def cuda_ms(fn, reps, setup=None):
 
 
 class Tally:
-    """Largest kernel-vs-plain error seen across the checks."""
+    """Largest kernel-vs-plain error seen across the checks, per kernel."""
 
     def __init__(self):
-        self.max_abs_err = 0.0
+        self.max_abs_err = {"mwd": 0.0, "sweep": 0.0, "fused": 0.0}
+
+    def record(self, kernel, got, want, what, tol=None) -> bool:
+        """Hold a kernel's output levels against its plain version's.
+
+        Without `tol` they must be bitwise equal, else within `tol` =
+        (atol, rtol). Returns whether they were bitwise.
+        """
+        bitwise = all(same(a, b) for a, b in zip(got, want))
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
+        if tol is None:
+            check(bitwise, f"{what}: {kernel} kernel != plain version "
+                           f"(max err {err:.3g})")
+        else:
+            atol, rtol = tol
+            for a, b in zip(got, want):
+                ok = ((a.double() - b.double()).abs()
+                      <= atol + rtol * b.double().abs()).all()
+                check(bool(ok), f"{what}: {kernel} kernel vs plain version "
+                                f"beyond {tol}")
+        return bitwise
 
     def kernel_vs_plain(self, spec, state, arrays, scalars, n_steps, *,
                         tol=None, **kw):
         """K1 and its plain version on identical padded inputs.
 
-        Compares the full padded parity grids; f32/f64 must be bitwise,
-        reduced types within `tol` = (atol, rtol). Returns the kernel's
-        cropped result and whether it was bitwise.
+        Compares the full padded parity grids (`record`). Returns the
+        kernel's cropped result and whether it was bitwise.
         """
         import torch
         from repro_torch.kernels import stencil_mwd as sm
@@ -134,22 +168,9 @@ class Tally:
         torch.cuda.synchronize()
         sm.run_plain(jp)
         torch.cuda.synchronize()
-        bitwise = all(same(a, b) for a, b in zip(jk.bufs, jp.bufs))
-        err = max(max_err(a, b) for a, b in zip(jk.bufs, jp.bufs))
-        self.max_abs_err = max(self.max_abs_err, err)
-        out = sm.finish(jk)
-        if tol is None:
-            check(bitwise, f"{spec.name}: kernel != plain version "
-                           f"(max err {err:.3g}, {kw})")
-        else:
-            want = sm.finish(jp)
-            atol, rtol = tol
-            for a, b in zip(out, want):
-                ok = ((a.double() - b.double()).abs()
-                      <= atol + rtol * b.double().abs()).all()
-                check(bool(ok), f"{spec.name}: kernel vs plain version "
-                                f"beyond {tol} ({kw})")
-        return out, bitwise
+        bitwise = self.record("mwd", jk.bufs, jp.bufs, f"{spec.name} {kw}",
+                              tol)
+        return sm.finish(jk), bitwise
 
 
 def phase_setup():
@@ -237,7 +258,7 @@ def phase_kernel_checks(tally: Tally, dev) -> None:
           "non-multiple grid: kernel != naive")
     log(f"  non-multiple grid {ODD_GRID}: bitwise vs plain and naive")
     log(f"phase 2 kernel checks: {time.perf_counter() - t0:.1f} s, "
-        f"max |kernel - plain| {tally.max_abs_err:.3g}")
+        f"max |kernel - plain| {tally.max_abs_err['mwd']:.3g}")
 
 
 def phase_main_path(tally: Tally, dev) -> dict:
@@ -348,6 +369,180 @@ def phase_serving(tally: Tally, dev) -> dict:
     return summary
 
 
+GHOSTZONE_DEFAULTS = dict(t_block=4, bz=16, by=16)   # ops.ghostzone's
+
+
+def plain_spatial(spec, state, arrays, scalars, n_steps):
+    """K2's plain version over a whole ops.spatial call."""
+    from repro_torch.kernels import stencil_sweep as sw
+    for _ in range(n_steps):
+        state = sw.run_plain(spec, state, arrays, scalars)
+    return state
+
+
+def plain_ghostzone(spec, state, arrays, scalars, n_steps, t_block=4,
+                    bz=16, by=16):
+    """K3's plain version over a whole ops.ghostzone call (short last pass)."""
+    from repro_torch.kernels import stencil_fused as fu
+    for tb in fu.pass_lengths(n_steps, t_block):
+        state = fu.run_plain(spec, state, arrays, scalars, tb, bz=bz, by=by)
+    return state
+
+
+def timed(fn):
+    """Run `fn` once between CUDA events: (its result, ms)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_baselines_small(tally: Tally, dev) -> None:
+    """K2 and K3 against their plain versions on small grids."""
+    import torch
+    from repro_torch.core import ir
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_fused as fu
+    from repro_torch.kernels import stencil_sweep as sw
+    t0 = time.perf_counter()
+    # (grid, dtype, ops.spatial kwargs, ops.ghostzone kwargs, n_steps)
+    cases = [(MID_GRID, "f32", dict(bz=8), dict(t_block=3, bz=8, by=8), 5),
+             (MID_GRID, "f32", {}, {}, MAIN_STEPS),
+             (ODD_GRID, "f32", dict(bz=8), dict(t_block=3, bz=8, by=8), 5),
+             (MID_GRID, "bf16", dict(bz=8), dict(t_block=3, bz=8, by=8), 5)]
+    for spec in list(st.SPECS.values()) + [aniso11(ir)]:
+        for grid, dt, kw_s, kw_g, n in cases:
+            state, coeffs = st.make_problem(spec, grid, dtype=dt, seed=5,
+                                            device=dev)
+            arrays, scalars = ir.split_coeffs(spec, coeffs)
+            tol = None if dt == "f32" else spec.tolerance(dt)
+            what = f"{spec.name} {grid} {dt} n_steps={n}"
+            got_s = ops.spatial(spec, state, coeffs, n, **kw_s)
+            want = plain_spatial(spec, state, arrays, scalars, n)
+            torch.cuda.synchronize()
+            bit_s = tally.record("sweep", got_s, want, f"{what} {kw_s}", tol)
+            got_g = ops.ghostzone(spec, state, coeffs, n, **kw_g)
+            want = plain_ghostzone(spec, state, arrays, scalars, n,
+                                   **{**GHOSTZONE_DEFAULTS, **kw_g})
+            torch.cuda.synchronize()
+            bit_g = tally.record("fused", got_g, want, f"{what} {kw_g}", tol)
+            if dt == "f32":
+                naive = ops.naive(spec, state, coeffs, n)
+                check(all(same(a, b) for a, b in zip(got_s, naive))
+                      and all(same(a, b) for a, b in zip(got_g, naive)),
+                      f"{what}: spatial/ghostzone != naive")
+            log(f"  {what}: K2 {kw_s} and K3 {kw_g} "
+                f"{'bitwise' if bit_s and bit_g else 'within op.tolerance'}"
+                f" vs plain")
+        # n_steps = 0: the identity, no launch
+        before = (sw.LAUNCHES.count, fu.LAUNCHES.count)
+        for fn in (ops.spatial, ops.ghostzone):
+            zero = fn(spec, state, coeffs, 0)
+            check(all(same(a, b) for a, b in zip(zero, state)),
+                  f"{spec.name}: {fn.__name__} n_steps=0 is not the identity")
+        check((sw.LAUNCHES.count, fu.LAUNCHES.count) == before,
+              f"{spec.name}: n_steps=0 launched a kernel")
+    log(f"phase 5a baselines, small grids: {time.perf_counter() - t0:.1f} s,"
+        f" max |kernel - plain| K2 {tally.max_abs_err['sweep']:.3g}"
+        f" K3 {tally.max_abs_err['fused']:.3g}")
+
+
+def library_conv3d(spec, state, scalars, dev) -> dict:
+    """F.conv3d as one step of 7pt-const, timed beside one K2 launch."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import stencil_sweep as sw
+    c0, c1 = scalars
+    w = torch.zeros((1, 1, 3, 3, 3), dtype=state[0].dtype, device=dev)
+    w[0, 0, 1, 1, 1] = c0
+    for idx in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                (1, 1, 2)):
+        w[(0, 0) + idx] = c1
+    x = state[0][None, None]
+    lib_out = F.conv3d(x, w)                               # warm-up
+    library_ms = cuda_ms(lambda: F.conv3d(x, w), TIMING_REPS)
+    k2 = sw.run_kernel(spec, state, None, scalars)         # warm-up
+    step_ms = cuda_ms(lambda: sw.run_kernel(spec, state, None, scalars),
+                      TIMING_REPS)
+    err = max_err(lib_out[0, 0], k2[0][1:-1, 1:-1, 1:-1])
+    return {"library_ms": library_ms, "k2_step_ms": step_ms,
+            "library_err_vs_k2": err}
+
+
+def phase_baselines_main(tally: Tally, dev) -> tuple[dict, dict, dict]:
+    """ops.spatial / ops.ghostzone at 512^3 against naive, plain, bound."""
+    import torch
+    from repro_torch.core import ir
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_fused as fu
+    from repro_torch.kernels import stencil_sweep as sw
+    t0 = time.perf_counter()
+    rows, launches, library = {}, {"sweep": 0, "fused": 0}, {}
+    tb = GHOSTZONE_DEFAULTS["t_block"]
+    methods = (
+        ("spatial", "sweep", sw, plain_spatial,
+         dict(passes=MAIN_STEPS, outputs=1)),
+        ("ghostzone", "fused", fu, plain_ghostzone,
+         dict(passes=-(-MAIN_STEPS // tb), outputs=2)))
+    for name, spec in st.SPECS.items():
+        state, coeffs = st.make_problem(spec, MAIN_GRID, seed=0, device=dev)
+        arrays, scalars = ir.split_coeffs(spec, coeffs)
+        naive = ops.naive(spec, state, coeffs, MAIN_STEPS)
+        # timed on a second run: the first grows the caching allocator
+        naive_ms = cuda_ms(
+            lambda: ops.naive(spec, state, coeffs, MAIN_STEPS), 1)
+        atol, rtol = spec.tolerance("f32")
+        limit = atol + rtol * max(float(naive[0].abs().max()), 1.0)
+        for method, kernel, mod, plain, work in methods:
+            fn = getattr(ops, method)
+            mod.LAUNCHES.count = 0
+            out = fn(spec, state, coeffs, MAIN_STEPS)
+            torch.cuda.synchronize()
+            n_launch = mod.LAUNCHES.count
+            launches[kernel] += n_launch
+            check(n_launch > 0, f"{name}: ops.{method} launched no {kernel} "
+                                "kernel")
+            check(all(bool(torch.isfinite(a).all()) for a in out),
+                  f"{name}: ops.{method} non-finite output")
+            err = max(max_err(a, b) for a, b in zip(out, naive))
+            check(err <= limit, f"{name}: ops.{method} vs ops.naive err "
+                                f"{err:.3g} at 512^3")
+            bitwise_naive = all(same(a, b) for a, b in zip(out, naive))
+            want, plain_ms = timed(
+                lambda: plain(spec, state, arrays, scalars, MAIN_STEPS))
+            bit_plain = tally.record(kernel, out, want,
+                                     f"{name} 512^3 ops.{method}")
+            del out, want
+            kernel_ms = cuda_ms(
+                lambda: fn(spec, state, coeffs, MAIN_STEPS), TIMING_REPS)
+            b_ms, b_by = bound(spec, MAIN_GRID, MAIN_STEPS, **work)
+            lups = MAIN_GRID[0] * MAIN_GRID[1] * MAIN_GRID[2] * MAIN_STEPS
+            row = {"op": name, "method": method, "kernel": kernel,
+                   "grid": list(MAIN_GRID), "steps": MAIN_STEPS,
+                   "kernel_ms": kernel_ms, "glups": lups / kernel_ms / 1e6,
+                   "launches_per_call": n_launch, "bound_ms": b_ms,
+                   "bound_by": b_by, "roofline_share": b_ms / kernel_ms,
+                   "plain_ms": plain_ms, "naive_ms": naive_ms,
+                   "err_vs_naive": err, "bitwise_vs_naive": bitwise_naive,
+                   "bitwise_vs_plain": bit_plain}
+            if name == "7pt-const" and method == "spatial":
+                library = library_conv3d(spec, state, scalars, dev)
+                row.update(library)
+            rows[(name, method)] = row
+            log("baseline " + json.dumps(row))
+        del state, coeffs, arrays, naive
+        torch.cuda.empty_cache()
+    log(f"phase 5b baselines at {MAIN_GRID}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rows, launches, library
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -369,16 +564,36 @@ def main() -> int:
     phase_kernel_checks(tally, dev)
     rows = phase_main_path(tally, dev)
     served = phase_serving(tally, dev)
+    phase_baselines_small(tally, dev)
+    base, base_launches, library = phase_baselines_main(tally, dev)
     k = rows[SERVE_OP]
     kernels = [{
         "name": "mwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mwd.cu",
         "replaces": "src/repro/kernels/stencil_mwd.py:69",
         "launches": served["k1_launches"],
-        "max_abs_err": tally.max_abs_err,
+        "max_abs_err": tally.max_abs_err["mwd"],
         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}]
+    # ms, plain_ms and bound_ms at 7pt-var per call, as K1's entry;
+    # launches over the 512^3 drive of phase 5
+    for name, method, line, lib_ms, lib_call in (
+            ("sweep", "spatial", 31, library["library_ms"],
+             "F.conv3d 3x3x3, 7pt-const 512^3, one step (K2: k2_step_ms)"),
+            ("fused", "ghostzone", 33, None, None)):
+        b = base[(SERVE_OP, method)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/stencil_{name}.py:{line}",
+            "launches": base_launches[name],
+            "max_abs_err": tally.max_abs_err[name],
+            "ms": b["kernel_ms"], "plain_ms": b["plain_ms"],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": lib_ms, "library_call": lib_call})
+    check(all(kern["launches"] > 0 for kern in kernels),
+          "a kernel of the path was never launched")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

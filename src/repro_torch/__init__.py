@@ -5,6 +5,7 @@ names (`core.ir`, `core.tiling`, `kernels.ops`, `launch.serve`, ...) so each
 counterpart is easy to find, and imports nothing of it. Tensors are plain
 `torch.Tensor`s on an explicit device: entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``, and they raise instead of falling back
-when no GPU is present. The one hand-written Hopper kernel (the MWD advance,
-`kernels.stencil_mwd`) builds with ``nvcc`` at first use.
+when no GPU is present. The hand-written Hopper kernels (the MWD advance and
+the spatial and ghost-zone baselines, under `kernels`) build with ``nvcc``
+at first use.
 """

@@ -7,8 +7,8 @@ Each ``csrc/<name>.cu`` compiles into one shared library with a plain
          -shared -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so
 
 The library lands in ``build/`` beside this module (git-ignored), named by
-a hash of its source and flags, so a changed source never loads a stale
-build. Nothing is compiled at import time: `load` builds at first use and
+a hash of its source, every shared header ``csrc/*.cuh`` and the flags, so
+a changed source or header never loads a stale build. Nothing is compiled at import time: `load` builds at first use and
 `build_all` builds every source at once, one nvcc process each.
 """
 
@@ -54,11 +54,19 @@ def _nvcc() -> str:
                        "the CUDA kernels build only where the toolkit exists")
 
 
-def _target(name: str) -> tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+def _target(name: str, csrc: Path = CSRC,
+            build_dir: Path = BUILD_DIR) -> tuple[Path, Path]:
+    """The source of `name` and the library path named by its content hash.
+
+    The hash covers ``<name>.cu``, every header ``*.cuh`` beside it (by
+    name and content) and the nvcc flags.
+    """
+    src = csrc / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, build_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

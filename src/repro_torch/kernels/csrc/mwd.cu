@@ -25,26 +25,17 @@
 // cp.async/TMA, x-blocking (MWDPlan.block_x) and a persistent row barrier
 // are the known ways to cut the traffic, left for later work.
 //
-// Arithmetic: the taps are summed left-associatively per coefficient group
-// in `op.groups` order, one multiply per group, groups accumulated in order,
-// and a 2nd-order op wraps it as 2*V - prev [+ scale*acc]; every operation
-// rounds to the accumulator type, exactly as the plain PyTorch version
-// (repro_torch.core.ir.sweep_region) does. Built with -fmad=false so no
-// multiply-add is contracted and the two agree bit for bit.
+// Arithmetic: `update_cell` of stencil_cell.cuh, shared with K2 and K3,
+// which rounds every operation to the accumulator type exactly as the plain
+// PyTorch version (repro_torch.core.ir.sweep_region) does. Built with
+// -fmad=false so no multiply-add is contracted and the two agree bit for
+// bit. The update is in place: prev and out are the same parity grid.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MWD_THREADS 512
-#define MWD_MAX_TAPS 128
-#define MWD_MAX_GROUPS 64
+#include "stencil_cell.cuh"
 
-// stream / accumulator type codes shared with the Python wrapper
-enum { T_F32 = 0, T_F64 = 1, T_BF16 = 2, T_F16 = 3 };
-// launcher errors (negative; positive values are cudaError_t codes)
-enum { E_TYPES = -1, E_OP = -2, E_GEOMETRY = -3 };
+#define MWD_THREADS 512
 
 struct Geo {
   long long grid_elems;   // elements of one padded grid (nz_tot*nyp*nxp)
@@ -54,96 +45,6 @@ struct Geo {
   int lo_z, hi_z, lo_y, hi_y, lo_x, hi_x;   // interior, padded coordinates
   int skip_inactive;      // fused mode: tiles without spans do nothing
 };
-
-struct Op {
-  int n_groups;
-  int time_order;
-  int scale_kind;         // -1 none, 0 const, 1 array
-  int scale_slot;
-  float scale_f;
-  double scale_d;
-  int grp_start[MWD_MAX_GROUPS + 1];
-  int grp_kind[MWD_MAX_GROUPS];    // 0 const, 1 array
-  int grp_slot[MWD_MAX_GROUPS];
-  float grp_f[MWD_MAX_GROUPS];     // const value in the float opmath type
-  double grp_d[MWD_MAX_GROUPS];    // ... and in double
-  long long tap_off[MWD_MAX_TAPS]; // linear offsets, in group order
-};
-
-// M is the type an operation computes in (PyTorch's opmath type); round()
-// rounds an M value to the storage type T.
-template <typename T> struct Num;
-template <> struct Num<float> {
-  using M = float;
-  __device__ static float load(float v) { return v; }
-  __device__ static float round(float v) { return v; }
-  __device__ static float store(float v) { return v; }
-};
-template <> struct Num<double> {
-  using M = double;
-  __device__ static double load(double v) { return v; }
-  __device__ static double round(double v) { return v; }
-  __device__ static double store(double v) { return v; }
-};
-template <> struct Num<__nv_bfloat16> {
-  using M = float;
-  __device__ static float load(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  __device__ static __nv_bfloat16 store(float v) {
-    return __float2bfloat16_rn(v);
-  }
-};
-template <> struct Num<__half> {
-  using M = float;
-  __device__ static float load(__half v) { return __half2float(v); }
-  __device__ static float round(float v) {
-    return __half2float(__float2half_rn(v));
-  }
-  __device__ static __half store(float v) { return __float2half_rn(v); }
-};
-
-template <typename M> __device__ M const_value(float f, double d);
-template <> __device__ float const_value<float>(float f, double) { return f; }
-template <> __device__ double const_value<double>(float, double d) { return d; }
-
-// One lattice update of cell `off`: reads src at every tap, dst at the cell
-// (the t-1 level of a 2nd-order op), the coefficient streams at the cell.
-template <typename S, typename A>
-__device__ __forceinline__ void update_cell(const S* src, S* dst,
-                                            const S* coeff, long long off,
-                                            long long grid_elems,
-                                            const Op& op) {
-  using M = typename Num<A>::M;
-  M acc = M(0);
-  for (int g = 0; g < op.n_groups; ++g) {
-    const int t0 = op.grp_start[g], t1 = op.grp_start[g + 1];
-    M s = M(Num<S>::load(src[off + op.tap_off[t0]]));
-    for (int t = t0 + 1; t < t1; ++t)
-      s = Num<A>::round(s + M(Num<S>::load(src[off + op.tap_off[t]])));
-    const M c = op.grp_kind[g]
-        ? M(Num<S>::load(coeff[op.grp_slot[g] * grid_elems + off]))
-        : const_value<M>(op.grp_f[g], op.grp_d[g]);
-    const M term = Num<A>::round(c * s);
-    acc = g == 0 ? term : Num<A>::round(acc + term);
-  }
-  if (op.time_order == 2) {
-    const M lead = Num<A>::round(
-        Num<A>::round(M(2) * M(Num<S>::load(src[off])))
-        - M(Num<S>::load(dst[off])));
-    if (op.scale_kind == 1) {
-      const M c = M(Num<S>::load(coeff[op.scale_slot * grid_elems + off]));
-      acc = Num<A>::round(lead + Num<A>::round(c * acc));
-    } else if (op.scale_kind == 0) {
-      const M c = const_value<M>(op.scale_f, op.scale_d);
-      acc = Num<A>::round(lead + Num<A>::round(c * acc));
-    } else {
-      acc = Num<A>::round(lead + acc);
-    }
-  }
-  dst[off] = Num<S>::store(acc);
-}
 
 // One diamond row. Grid (n_tiles, batch); the tables are device int32:
 // parity[n_rows], y0/y1[n_rows][n_tiles][T] (padded y), active[n_rows][n_tiles].
@@ -179,7 +80,8 @@ mwd_row_kernel(S* buf_e, S* buf_o, const S* coeff,
         const int t = i / nxr;
         const long long off = (long long)(z0 + t / nyr) * g.sz
             + (long long)(ya + t % nyr) * g.sy + (g.lo_x + x);
-        update_cell<S, A>(src, dst, cf, off, g.grid_elems, op);
+        update_cell<S, A>(src + off, op.tap_off, dst + off, dst + off,
+                          cf, off, g.grid_elems, op);
       }
       __syncthreads();   // update tau+1 reads what update tau wrote
     }
@@ -222,9 +124,10 @@ int mwd_rows(int stream_type, int acc_type, void* buf_e, void* buf_o,
              int n_groups, int time_order, const int* tables, int n_rows,
              int row_begin, int row_end, int batch, int device,
              void* stream) {
-  if (n_taps < 1 || n_taps > MWD_MAX_TAPS || n_groups < 1
-      || n_groups > MWD_MAX_GROUPS)
-    return E_OP;
+  Op op;
+  const int bad_op = make_op(op, taps, n_taps, groups, values, n_groups,
+                             time_order);
+  if (bad_op) return bad_op;
   Geo g;
   g.grid_elems = geo[0]; g.sz = geo[1]; g.sy = geo[2];
   g.n_arrays = (int)geo[3]; g.n_j = (int)geo[4]; g.n_f = (int)geo[5];
@@ -235,24 +138,6 @@ int mwd_rows(int stream_type, int acc_type, void* buf_e, void* buf_o,
   if (g.n_tiles < 1 || batch < 1 || batch > 65535 || g.n_f < 1
       || g.radius < 1 || row_begin < 0 || row_end > n_rows)
     return E_GEOMETRY;
-  Op op;
-  op.n_groups = n_groups;
-  op.time_order = time_order;
-  op.grp_start[0] = 0;
-  for (int i = 0; i < n_groups; ++i) {
-    op.grp_start[i + 1] = op.grp_start[i] + groups[3 * i];
-    op.grp_kind[i] = groups[3 * i + 1];
-    op.grp_slot[i] = groups[3 * i + 2];
-    op.grp_d[i] = values[i];
-    op.grp_f[i] = (float)values[i];
-  }
-  if (op.grp_start[n_groups] != n_taps) return E_OP;
-  op.scale_kind = groups[3 * n_groups];
-  op.scale_slot = groups[3 * n_groups + 1];
-  op.scale_d = values[n_groups];
-  op.scale_f = (float)values[n_groups];
-  for (int t = 0; t < n_taps; ++t) op.tap_off[t] = taps[t];
-
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int* tab = tables;
@@ -278,12 +163,7 @@ int mwd_rows(int stream_type, int acc_type, void* buf_e, void* buf_o,
 }
 
 const char* mwd_error_string(int code) {
-  switch (code) {
-    case E_TYPES: return "unsupported stream/accumulator dtype pair";
-    case E_OP: return "operator exceeds the kernel's tap or group limits";
-    case E_GEOMETRY: return "invalid launch geometry";
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return stencil_error_string(code);
 }
 
 }  // extern "C"

@@ -1,0 +1,165 @@
+// The lattice update shared by the port's three stencil kernels
+// (mwd.cu: K1, sweep.cu: K2, fused.cu: K3).
+//
+// It holds the C-ABI type and error codes, the operator table `Op` that the
+// Python wrappers fill from a StencilOp, the numeric traits `Num<>` and
+// `update_cell`. This is the one arithmetic that all three kernels and the
+// plain PyTorch sweep (repro_torch.core.ir.sweep_region) agree on bit for
+// bit: the taps are summed left-associatively per coefficient group in
+// `op.groups` order, one multiply per group, groups accumulated in order,
+// and a 2nd-order op wraps it as 2*V - prev [+ scale*acc]. Every operation
+// rounds to the accumulator type, and the kernels are built with
+// -fmad=false so that no multiply-add is contracted.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#define STENCIL_MAX_TAPS 128
+#define STENCIL_MAX_GROUPS 64
+
+// stream / accumulator type codes shared with the Python wrappers
+enum { T_F32 = 0, T_F64 = 1, T_BF16 = 2, T_F16 = 3 };
+// launcher errors (negative; positive values are cudaError_t codes)
+enum { E_TYPES = -1, E_OP = -2, E_GEOMETRY = -3 };
+
+struct Op {
+  int n_groups;
+  int time_order;
+  int scale_kind;         // -1 none, 0 const, 1 array
+  int scale_slot;
+  float scale_f;
+  double scale_d;
+  int grp_start[STENCIL_MAX_GROUPS + 1];
+  int grp_kind[STENCIL_MAX_GROUPS];    // 0 const, 1 array
+  int grp_slot[STENCIL_MAX_GROUPS];
+  float grp_f[STENCIL_MAX_GROUPS];     // const value in the float opmath type
+  double grp_d[STENCIL_MAX_GROUPS];    // ... and in double
+  long long tap_off[STENCIL_MAX_TAPS]; // linear offsets in the grid, group order
+};
+
+// Fill `op` from the wrappers' tables:
+//   taps[n_taps]     linear tap offsets in group order
+//   groups[3*G+2]    (count, kind, slot) per group, then (scale_kind, slot)
+//   values[G+1]      const value per group (0 for array groups), then the
+//                    scale's
+// Returns 0 or E_OP.
+static inline int make_op(Op& op, const long long* taps, int n_taps,
+                          const int* groups, const double* values,
+                          int n_groups, int time_order) {
+  if (n_taps < 1 || n_taps > STENCIL_MAX_TAPS || n_groups < 1
+      || n_groups > STENCIL_MAX_GROUPS)
+    return E_OP;
+  op.n_groups = n_groups;
+  op.time_order = time_order;
+  op.grp_start[0] = 0;
+  for (int i = 0; i < n_groups; ++i) {
+    op.grp_start[i + 1] = op.grp_start[i] + groups[3 * i];
+    op.grp_kind[i] = groups[3 * i + 1];
+    op.grp_slot[i] = groups[3 * i + 2];
+    op.grp_d[i] = values[i];
+    op.grp_f[i] = (float)values[i];
+  }
+  if (op.grp_start[n_groups] != n_taps) return E_OP;
+  op.scale_kind = groups[3 * n_groups];
+  op.scale_slot = groups[3 * n_groups + 1];
+  op.scale_d = values[n_groups];
+  op.scale_f = (float)values[n_groups];
+  for (int t = 0; t < n_taps; ++t) op.tap_off[t] = taps[t];
+  return 0;
+}
+
+static inline const char* stencil_error_string(int code) {
+  switch (code) {
+    case E_TYPES: return "unsupported stream/accumulator dtype pair";
+    case E_OP: return "operator exceeds the kernel's tap or group limits";
+    case E_GEOMETRY: return "invalid launch geometry";
+  }
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// M is the type an operation computes in (PyTorch's opmath type); round()
+// rounds an M value to the storage type T.
+template <typename T> struct Num;
+template <> struct Num<float> {
+  using M = float;
+  __device__ static float load(float v) { return v; }
+  __device__ static float round(float v) { return v; }
+  __device__ static float store(float v) { return v; }
+};
+template <> struct Num<double> {
+  using M = double;
+  __device__ static double load(double v) { return v; }
+  __device__ static double round(double v) { return v; }
+  __device__ static double store(double v) { return v; }
+};
+template <> struct Num<__nv_bfloat16> {
+  using M = float;
+  __device__ static float load(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ static float round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  __device__ static __nv_bfloat16 store(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+template <> struct Num<__half> {
+  using M = float;
+  __device__ static float load(__half v) { return __half2float(v); }
+  __device__ static float round(float v) {
+    return __half2float(__float2half_rn(v));
+  }
+  __device__ static __half store(float v) { return __float2half_rn(v); }
+};
+
+template <typename M> __device__ M const_value(float f, double d);
+template <> __device__ inline float const_value<float>(float f, double) {
+  return f;
+}
+template <> __device__ inline double const_value<double>(float,
+                                                       double d) {
+  return d;
+}
+
+// One lattice update. `src`, `prev` and `out` point at the cell: src is read
+// at every tap (`taps` are linear offsets in src's own layout, in group
+// order), prev at the cell (the t-1 level of a 2nd-order op), and the
+// result goes to out, which may alias prev. The coefficient streams are
+// read at `coeff[slot * cstride + coff]`.
+template <typename S, typename A, typename Off>
+__device__ __forceinline__ void update_cell(const S* src, const Off* taps,
+                                            const S* prev, S* out,
+                                            const S* coeff, long long coff,
+                                            long long cstride,
+                                            const Op& op) {
+  using M = typename Num<A>::M;
+  M acc = M(0);
+  for (int g = 0; g < op.n_groups; ++g) {
+    const int t0 = op.grp_start[g], t1 = op.grp_start[g + 1];
+    M s = M(Num<S>::load(src[taps[t0]]));
+    for (int t = t0 + 1; t < t1; ++t)
+      s = Num<A>::round(s + M(Num<S>::load(src[taps[t]])));
+    const M c = op.grp_kind[g]
+        ? M(Num<S>::load(coeff[op.grp_slot[g] * cstride + coff]))
+        : const_value<M>(op.grp_f[g], op.grp_d[g]);
+    const M term = Num<A>::round(c * s);
+    acc = g == 0 ? term : Num<A>::round(acc + term);
+  }
+  if (op.time_order == 2) {
+    const M lead = Num<A>::round(
+        Num<A>::round(M(2) * M(Num<S>::load(src[0])))
+        - M(Num<S>::load(prev[0])));
+    if (op.scale_kind == 1) {
+      const M c = M(Num<S>::load(coeff[op.scale_slot * cstride + coff]));
+      acc = Num<A>::round(lead + Num<A>::round(c * acc));
+    } else if (op.scale_kind == 0) {
+      const M c = const_value<M>(op.scale_f, op.scale_d);
+      acc = Num<A>::round(lead + Num<A>::round(c * acc));
+    } else {
+      acc = Num<A>::round(lead + acc);
+    }
+  }
+  out[0] = Num<S>::store(acc);
+}

@@ -2,13 +2,19 @@
 
 Every entry point takes ``(spec, state, coeffs, n_steps [, plan params])``
 with `coeffs` in the op's packed convention (`core.ir.split_coeffs`). The
-tensors' device picks the executor: CUDA tensors run the hand-written
-kernel (`kernels.stencil_mwd.run_kernel`), CPU tensors its plain PyTorch
-version. Problems are built on a device with
+tensors' device picks the executor: CUDA tensors run a hand-written kernel,
+CPU tensors its plain PyTorch version. Problems are built on a device with
 `core.stencils.make_problem(..., device=...)`.
 
-Only the MWD advance and the naive oracle are ported so far; the spatial
-and ghost-zone baselines of the reference wait for their kernels.
+The four methods of the reference, with their kernels:
+
+* `naive`: the un-blocked oracle, plain PyTorch on any device;
+* `spatial`: spatial blocking, one K2 launch per step
+  (`kernels.stencil_sweep`, ``csrc/sweep.cu``);
+* `ghostzone`: ghost-zone temporal blocking, one K3 launch per pass of
+  ``t_block`` steps (`kernels.stencil_fused`, ``csrc/fused.cu``);
+* `mwd`: the paper's MWD advance, one K1 launch per diamond row
+  (`kernels.stencil_mwd`, ``csrc/mwd.cu``).
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from repro_torch.core import ir, precision
 from repro_torch.core.mwd import MWDPlan
 from repro_torch.core.stencils import StencilSpec
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels import stencil_mwd
+from repro_torch.kernels import stencil_fused, stencil_mwd, stencil_sweep
 
 ref = _ref
 
@@ -46,6 +52,21 @@ def resolve_plan(spec: StencilSpec, state, plan, batch: int = 1) -> MWDPlan:
 def _split_coeffs(spec: StencilSpec, coeffs):
     arrays, scalars = ir.split_coeffs(spec, coeffs)
     return arrays, tuple(float(x) for x in scalars)
+
+
+def spatial(spec: StencilSpec, state, coeffs, n_steps: int, bz: int = 8):
+    """Optimal spatial blocking baseline: n_steps single-sweep steps."""
+    arrays, scalars = _split_coeffs(spec, coeffs)
+    return stencil_sweep.run_sweep(spec, state, arrays, scalars, n_steps,
+                                   bz=bz)
+
+
+def ghostzone(spec: StencilSpec, state, coeffs, n_steps: int,
+              t_block: int = 4, bz: int = 16, by: int = 16):
+    """Ghost-zone fused temporal blocking: passes of t_block steps."""
+    arrays, scalars = _split_coeffs(spec, coeffs)
+    return stencil_fused.run_fused(spec, state, arrays, scalars, n_steps,
+                                   t_block=t_block, bz=bz, by=by)
 
 
 def mwd(spec: StencilSpec, state, coeffs, n_steps: int,
@@ -140,4 +161,5 @@ def naive(spec: StencilSpec, state, coeffs, n_steps: int):
     return _ref.naive_steps(spec, state, coeffs, n_steps)
 
 
-METHODS = {"naive": naive, "mwd": mwd}
+METHODS = {"naive": naive, "spatial": spatial, "ghostzone": ghostzone,
+           "mwd": mwd}

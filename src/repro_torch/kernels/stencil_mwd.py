@@ -39,19 +39,12 @@ from repro_torch.core import ir, tiling
 from repro_torch.core import stencils as st
 from repro_torch.core.mwd import sync_dirichlet_frame
 from repro_torch.kernels import _build
-
-
-@dataclasses.dataclass
-class LaunchCounter:
-    """Plain count of kernel launches, so a run can show it used the kernel."""
-
-    count: int = 0
+from repro_torch.kernels._host import (LaunchCounter, TYPE_CODES,
+                                         check_inputs, check_kernel_inputs,
+                                         edge_pad, op_tables, ptr)
 
 
 LAUNCHES = LaunchCounter()
-
-_TYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
-               torch.float16: 3}
 
 
 @dataclasses.dataclass
@@ -81,26 +74,6 @@ class Job:
     acc_dtype: torch.dtype | None = None
 
 
-def _edge_pad(a: torch.Tensor, pads) -> torch.Tensor:
-    """Edge-pad the trailing (z, y, x) axes; ``pads = ((lo, hi),) * 3``.
-
-    The same values as ``jnp.pad(mode="edge")``, for any leading axes.
-    """
-    (z0, z1), (y0, y1), (x0, x1) = pads
-    nz, ny, nx = a.shape[-3:]
-    out = a.new_empty(a.shape[:-3] + (z0 + nz + z1, y0 + ny + y1,
-                                      x0 + nx + x1))
-    zs, ys = slice(z0, z0 + nz), slice(y0, y0 + ny)
-    out[..., zs, ys, x0:x0 + nx] = a
-    out[..., zs, ys, :x0] = a[..., :, :, :1]
-    out[..., zs, ys, x0 + nx:] = a[..., :, :, -1:]
-    out[..., zs, :y0, :] = out[..., zs, y0:y0 + 1, :]
-    out[..., zs, y0 + ny:, :] = out[..., zs, y0 + ny - 1:y0 + ny, :]
-    out[..., :z0, :, :] = out[..., z0:z0 + 1, :, :]
-    out[..., z0 + nz:, :, :] = out[..., z0 + nz - 1:z0 + nz, :, :]
-    return out
-
-
 def prepare(spec: st.StencilSpec, state, arrays, scalars, n_steps: int, *,
             d_w: int, n_f: int, fused: bool, interior=None, y_domain=None,
             acc_dtype=None) -> Job:
@@ -120,18 +93,7 @@ def prepare(spec: st.StencilSpec, state, arrays, scalars, n_steps: int, *,
     if d_w % (2 * r) or d_w % n_f:
         raise ValueError(f"need 2R | d_w and n_f | d_w (d_w={d_w}, R={r}, "
                          f"n_f={n_f})")
-    if prev.shape != cur.shape or prev.dtype != cur.dtype:
-        raise ValueError(f"cur {tuple(cur.shape)}/{cur.dtype} and prev "
-                         f"{tuple(prev.shape)}/{prev.dtype} disagree")
-    if arrays is not None:
-        want = cur.shape[:-3] + (spec.n_coeff_arrays,) + cur.shape[-3:]
-        if tuple(arrays.shape) != tuple(want) or arrays.dtype != cur.dtype:
-            raise ValueError(f"{spec.name}: coefficient streams "
-                             f"{tuple(arrays.shape)}/{arrays.dtype}, want "
-                             f"{tuple(want)}/{cur.dtype}")
-    for t in (prev,) + (() if arrays is None else (arrays,)):
-        if t.device != cur.device:
-            raise ValueError(f"tensors on {t.device} and {cur.device}")
+    check_inputs(spec, cur, prev, arrays)
     prev = sync_dirichlet_frame(cur, prev, r)
     nz, ny, nx = cur.shape[-3:]
     y_lo, y_hi = y_domain if y_domain is not None else (r, ny - r)
@@ -150,8 +112,8 @@ def prepare(spec: st.StencilSpec, state, arrays, scalars, n_steps: int, *,
     pz, px, py = r, r, 2 * d_w + r
     n_j = -(-(pz + nz + d_w) // n_f)
     pads = ((pz, n_j * n_f - nz - pz), (py, py), (px, px))
-    job.bufs = [_edge_pad(cur, pads), _edge_pad(prev, pads)]
-    job.coeff = _edge_pad(arrays, pads) if spec.n_coeff_arrays else None
+    job.bufs = [edge_pad(cur, pads), edge_pad(prev, pads)]
+    job.coeff = edge_pad(arrays, pads) if spec.n_coeff_arrays else None
     job.scalars = tuple(float(x) for x in scalars)
     job.comp = comp
     job.bounds = tuple(v + p for v, p in zip(interior,
@@ -197,26 +159,6 @@ def run_plain(job: Job) -> None:
                     (hi_z, yb, hi_x), job.acc_dtype)
 
 
-def _op_tables(op: ir.StencilOp, scalars, sz: int, sy: int):
-    """Tap offsets, group descriptors and const values for the launcher."""
-    taps, groups, values = [], [], []
-    for coeff, members in op.groups:
-        taps += [t.dz * sz + t.dy * sy + t.dx for t in members]
-        groups += [len(members), int(coeff.kind == "array"), coeff.index]
-        values.append(scalars[coeff.index] if coeff.kind == "const" else 0.0)
-    scale = op.scale
-    groups += ([-1, 0] if scale is None
-               else [int(scale.kind == "array"), scale.index])
-    values.append(scalars[scale.index]
-                  if scale is not None and scale.kind == "const" else 0.0)
-    return (np.asarray(taps, np.int64), np.asarray(groups, np.int32),
-            np.asarray(values, np.float64))
-
-
-def _ptr(a: np.ndarray) -> ctypes.c_void_p:
-    return ctypes.c_void_p(a.ctypes.data)
-
-
 @functools.lru_cache(maxsize=None)
 def _mwd_lib() -> ctypes.CDLL:
     """The built ``csrc/mwd.cu`` with its launcher's C signature declared."""
@@ -234,18 +176,17 @@ def _mwd_lib() -> ctypes.CDLL:
 def run_kernel(job: Job) -> None:
     """Launch the CUDA kernel on the job's CUDA tensors, one launch per row."""
     bufs = job.bufs
-    dev = bufs[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"run_kernel wants CUDA tensors, got {dev}")
+    streams = bufs + ([job.coeff] if job.coeff is not None else [])
+    dev = check_kernel_inputs("MWD", streams)
     dt = bufs[0].dtype
     acc = job.acc_dtype if job.acc_dtype is not None else dt
-    if dt not in _TYPE_CODES or acc not in _TYPE_CODES:
+    if acc not in TYPE_CODES:
         raise ValueError(f"the MWD kernel has no {dt}/{acc} variant")
     comp, op = job.comp, job.op
     nz_tot, nyp, nxp = bufs[0].shape[-3:]
     batch = bufs[0].numel() // (nz_tot * nyp * nxp)
     sz, sy = nyp * nxp, nxp
-    taps, groups, values = _op_tables(op, job.scalars, sz, sy)
+    taps, groups, values = op_tables(op, job.scalars, sz, sy)
     py = job.pads[1]
     tables = torch.from_numpy(np.concatenate([
         comp.parity, (comp.y0 + py).ravel(), (comp.y1 + py).ravel(),
@@ -258,15 +199,13 @@ def run_kernel(job: Job) -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch(row_begin: int, row_end: int) -> None:
-        for t in job.bufs + ([job.coeff] if job.coeff is not None else []):
-            if not t.is_contiguous() or t.device != dev or t.dtype != dt:
-                raise ValueError("MWD kernel inputs must be contiguous "
-                                 f"{dt} tensors on {dev}")
+        check_kernel_inputs(
+            "MWD", job.bufs + ([job.coeff] if job.coeff is not None else []))
         rc = lib.mwd_rows(
-            _TYPE_CODES[dt], _TYPE_CODES[acc], job.bufs[0].data_ptr(),
+            TYPE_CODES[dt], TYPE_CODES[acc], job.bufs[0].data_ptr(),
             job.bufs[1].data_ptr(),
             job.coeff.data_ptr() if job.coeff is not None else None,
-            _ptr(geo), _ptr(taps), len(taps), _ptr(groups), _ptr(values),
+            ptr(geo), ptr(taps), len(taps), ptr(groups), ptr(values),
             len(op.groups), op.time_order, tables.data_ptr(), comp.n_rows,
             row_begin, row_end, batch, dev.index, stream)
         if rc != 0:

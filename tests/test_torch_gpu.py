@@ -1,4 +1,6 @@
-"""K1 on the card against its plain PyTorch version (skips without a GPU).
+"""K1, K2 and K3 on the card against their plain PyTorch versions.
+
+They skip without a GPU.
 
 Run on a CUDA machine with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 This file imports only the port, so it runs where JAX is not installed.
@@ -10,7 +12,9 @@ import torch
 from repro_torch.core import ir as tir
 from repro_torch.core import stencils as tst
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import stencil_fused as tfused
 from repro_torch.kernels import stencil_mwd as tkern
+from repro_torch.kernels import stencil_sweep as tsweep
 
 
 def aniso11(irmod):
@@ -35,7 +39,7 @@ def assert_bitwise(a, b):
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the MWD kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -86,3 +90,62 @@ def test_kernel_batched_equals_per_item_loop(cuda):
     assert tkern.LAUNCHES.count > before
     for i, (state, coeffs) in enumerate(probs):
         assert_bitwise((cur[i], prev[i]), tops.mwd(spec, state, coeffs, 5))
+
+
+def _spec(name):
+    return aniso11(tir) if name == "aniso11" else tst.SPECS[name]
+
+
+def _plain_fused(spec, state, arrays, scalars, n_steps, t_block, **kw):
+    for tb in tfused.pass_lengths(n_steps, t_block):
+        state = tfused.run_plain(spec, state, arrays, scalars, tb, **kw)
+    return state
+
+
+def _baselines_vs_plain(spec, state, coeffs, n_steps, t_block, bz, by):
+    """K2 and K3 over n_steps, each beside its plain version."""
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    got_s = tops.spatial(spec, state, coeffs, n_steps, bz=bz)
+    want_s = state
+    for _ in range(n_steps):
+        want_s = tsweep.run_plain(spec, want_s, arrays, scalars)
+    got_g = tops.ghostzone(spec, state, coeffs, n_steps, t_block=t_block,
+                           bz=bz, by=by)
+    want_g = _plain_fused(spec, state, arrays, scalars, n_steps, t_block,
+                          bz=bz, by=by)
+    torch.cuda.synchronize()
+    return (got_s, want_s), (got_g, want_g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(tst.SPECS) + ["aniso11"])
+def test_baseline_kernels_bitwise_equal_plain_versions_f32(cuda, name):
+    spec = _spec(name)
+    state, coeffs = tst.make_problem(spec, (24, 40, 36), seed=3, device=cuda)
+    for got, want in _baselines_vs_plain(spec, state, coeffs, 5, 3, 8, 8):
+        assert_bitwise(got, want)
+    naive = tops.naive(spec, state, coeffs, 5)
+    assert_bitwise(tops.spatial(spec, state, coeffs, 5), naive)
+    assert_bitwise(tops.ghostzone(spec, state, coeffs, 5), naive)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["7pt-var", "25pt-const"])
+def test_baseline_kernels_native_bf16_equal_plain_versions(cuda, name):
+    spec = tst.SPECS[name]
+    state, coeffs = tst.make_problem(spec, (24, 40, 36), dtype="bf16",
+                                     seed=4, device=cuda)
+    for got, want in _baselines_vs_plain(spec, state, coeffs, 4, 3, 8, 8):
+        assert got[0].dtype == torch.bfloat16
+        assert_bitwise(got, want)
+
+
+@pytest.mark.gpu
+def test_baseline_kernels_nonmultiple_grid_and_launch_counts(cuda):
+    spec = tst.SPECS["7pt-const"]
+    state, coeffs = tst.make_problem(spec, (37, 53, 29), seed=5, device=cuda)
+    before = (tsweep.LAUNCHES.count, tfused.LAUNCHES.count)
+    for got, want in _baselines_vs_plain(spec, state, coeffs, 5, 3, 8, 8):
+        assert_bitwise(got, want)
+    assert tsweep.LAUNCHES.count == before[0] + 5
+    assert tfused.LAUNCHES.count == before[1] + 2
