@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one GPU: build, check, run, serve.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare OTHER_CHECKOUT
 
 Run from a checkout of the repository on a machine with a CUDA card (an
 H100: the kernels build for sm_90a). Phases, each of which raises on
@@ -13,11 +14,18 @@ failure so the script exits non-zero:
    mid-size grid: the four paper ops and the custom mixed op aniso11, fused
    and per-row, a B=2 batch against a per-item loop, a grid that is not a
    multiple of D_w or N_F, n_steps=0, f32 (bitwise), bf16/fp16 with f32
-   accumulation and bf16 with native accumulation;
+   accumulation and bf16 with native accumulation; then an x width at
+   which the kernel itself splits each tile over several CTAs (fewer than
+   the largest cluster; coefficients staged at one op and read in place at
+   the others), fused, per-row, batched and f64;
 3. the main path at the production grid: ops.mwd(plan="auto") at 512^3 for
    the four paper ops, 8 steps, against ops.naive on the card, K1 against
-   its plain version on the same inputs, and K1's time by CUDA events
-   beside its bound;
+   its plain version on the same inputs, K1's time by CUDA events beside
+   its compulsory bound and the schedule's own traffic bound, and a
+   `config` line per op: cluster size, slab width, threads, dynamic
+   shared memory per CTA, which coefficient streams are staged, ptxas
+   registers and spills, and the cluster barriers per CTA and row times
+   one barrier's cost measured alone;
 4. serving: serve_stencil("7pt-var", 512^3, 8 steps, 4 requests,
    max_batch=2), every response bitwise equal to its own sequential
    ops.mwd, with K1's launch count read around the serving run, and K1
@@ -36,11 +44,17 @@ JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result. It imports nothing of JAX.
+
+With --compare it only times K1, K2 and K3 per paper op at 512^3 x 8,
+for the checkout at OTHER_CHECKOUT and for this one in turns (other, this,
+this, other), each in its own process that builds its own kernels.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -51,6 +65,7 @@ ROOT = Path(__file__).resolve().parent
 
 MID_GRID = (48, 64, 40)
 ODD_GRID = (37, 53, 29)
+WIDE_GRID = (20, 40, 200)
 MAIN_GRID = (512, 512, 512)
 MAIN_STEPS = 8
 SERVE_OP = "7pt-var"
@@ -158,22 +173,46 @@ class Tally:
         """K1 and its plain version on identical padded inputs.
 
         Compares the full padded parity grids (`record`). Returns the
-        kernel's cropped result and whether it was bitwise.
+        kernel's cropped result, whether it was bitwise, and the launch
+        configuration the kernel chose.
         """
         import torch
         from repro_torch.kernels import stencil_mwd as sm
         jk = sm.prepare(spec, state, arrays, scalars, n_steps, **kw)
         jp = sm.prepare(spec, state, arrays, scalars, n_steps, **kw)
+        cfg = sm.kernel_config(jk) if jk.bufs is not None else None
         sm.run_kernel(jk)
         torch.cuda.synchronize()
         sm.run_plain(jp)
         torch.cuda.synchronize()
-        bitwise = self.record("mwd", jk.bufs, jp.bufs, f"{spec.name} {kw}",
-                              tol)
-        return sm.finish(jk), bitwise
+        bitwise = self.record("mwd", jk.bufs, jp.bufs,
+                              f"{spec.name} {kw} {cfg}", tol)
+        return sm.finish(jk), bitwise, cfg
 
 
-def phase_setup():
+def ptxas_table(build_log: str) -> dict:
+    """Per kernel entry in an nvcc -Xptxas -v log: registers and spills."""
+    table, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            table[name] = {"registers": None, "spill_stores": None,
+                           "spill_loads": None}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                table[name]["spill_stores"] = int(m.group(1))
+                table[name]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                table[name]["registers"] = int(m.group(1))
+    return table
+
+
+def phase_setup() -> dict:
+    """Card, builds; returns the ptxas table of every built kernel."""
     from repro_torch.kernels import _build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -183,12 +222,15 @@ def phase_setup():
     log(smi.stdout.strip().splitlines()[0])
     t0 = time.perf_counter()
     built = _build.build_all()
+    table = {}
     for name, b in built.items():
         log(f"built {name}: {b.path.name} nvcc {b.seconds:.1f} s")
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        for fn, info in ptxas_table(b.log).items():
+            table[fn] = info
+            log(f"  ptxas {fn}: {info['registers']} registers, spills "
+                f"{info['spill_stores']}/{info['spill_loads']} bytes")
     log(f"phase 1 setup: {time.perf_counter() - t0:.1f} s")
+    return table
 
 
 def phase_kernel_checks(tally: Tally, dev) -> None:
@@ -199,15 +241,16 @@ def phase_kernel_checks(tally: Tally, dev) -> None:
     from repro_torch.kernels import stencil_mwd as sm
     t0 = time.perf_counter()
     specs = list(st.SPECS.values()) + [aniso11(ir)]
+    staged = {}                  # op: coefficients staged at WIDE_GRID
     for spec in specs:
         d_w = 12 if spec.radius == 3 else 8
         state, coeffs = st.make_problem(spec, MID_GRID, seed=1, device=dev)
         arrays, scalars = ir.split_coeffs(spec, coeffs)
         kw = dict(d_w=d_w, n_f=2)
-        fused, _ = tally.kernel_vs_plain(spec, state, arrays, scalars, 8,
-                                         fused=True, **kw)
-        row, _ = tally.kernel_vs_plain(spec, state, arrays, scalars, 8,
-                                       fused=False, **kw)
+        fused, _, _ = tally.kernel_vs_plain(spec, state, arrays, scalars, 8,
+                                            fused=True, **kw)
+        row, _, _ = tally.kernel_vs_plain(spec, state, arrays, scalars, 8,
+                                          fused=False, **kw)
         check(all(same(a, b) for a, b in zip(fused, row)),
               f"{spec.name}: fused != per-row")
         naive = ops.naive(spec, state, coeffs, 8)
@@ -230,6 +273,37 @@ def phase_kernel_checks(tally: Tally, dev) -> None:
                 if spec.n_coeff_arrays else None)
         tally.kernel_vs_plain(spec, bstate, barr, scalars, 8, fused=True,
                               **kw)
+        # several CTAs per tile: at WIDE_GRID the kernel splits x over 2-7
+        # of them (a cluster trading halos at R < 4); fused, per-row, the
+        # batch and f64, whose rings take more, narrower slabs
+        ws, wc = st.make_problem(spec, WIDE_GRID, seed=7, device=dev)
+        wa, wsc = ir.split_coeffs(spec, wc)
+        clusters = []
+        for fused in (True, False):
+            _, _, cw = tally.kernel_vs_plain(spec, ws, wa, wsc, 4,
+                                             fused=fused, **kw)
+            clusters.append(cw["cluster"])
+        if spec.n_coeff_arrays:
+            staged[spec.name] = cw["stage"]
+        other = st.make_problem(spec, WIDE_GRID, seed=9, device=dev)
+        wb = (torch.stack([ws[0], other[0][0]]),
+              torch.stack([ws[1], other[0][1]]))
+        wba = (torch.stack([wa, ir.split_coeffs(spec, other[1])[0]])
+               if spec.n_coeff_arrays else None)
+        tally.kernel_vs_plain(spec, wb, wba, wsc, 4, fused=True, **kw)
+        s64, c64 = st.make_problem(spec, WIDE_GRID, dtype="f64", seed=6,
+                                   device=dev)
+        a64, sc64 = ir.split_coeffs(spec, c64)
+        _, _, c64cfg = tally.kernel_vs_plain(spec, s64, a64, sc64, 4,
+                                             fused=True, **kw)
+        clusters.append(c64cfg["cluster"])
+        check(all(1 < c < 8 for c in clusters),
+              f"{spec.name}: {WIDE_GRID} ran {clusters} CTAs per tile")
+        # a grid no slab width, D_w or N_F divides
+        os_, oc = st.make_problem(spec, ODD_GRID, seed=8, device=dev)
+        oa, osc = ir.split_coeffs(spec, oc)
+        tally.kernel_vs_plain(spec, os_, oa, osc, 5, fused=True, d_w=d_w,
+                              n_f=4)
         # n_steps = 0: the identity, no launch
         before = sm.LAUNCHES.count
         zero = ops.mwd(spec, state, coeffs, 0, **kw)
@@ -241,27 +315,60 @@ def phase_kernel_checks(tally: Tally, dev) -> None:
             rs, rc = st.make_problem(spec, MID_GRID, dtype=dt, seed=3,
                                      device=dev)
             ra, rsc = ir.split_coeffs(spec, rc)
-            _, bitwise = tally.kernel_vs_plain(
+            _, bitwise, _ = tally.kernel_vs_plain(
                 spec, rs, ra, rsc, 8, fused=True, acc_dtype=acc,
                 tol=spec.tolerance(dt), **kw)
             log(f"  {spec.name} {dt} acc={acc}: kernel vs plain "
                 f"{'bitwise' if bitwise else 'within op.tolerance'}")
-        log(f"  {spec.name}: f32 fused/per-row/batched/n_steps=0 bitwise "
-            f"vs plain version; kernel vs naive err {err:.3g}")
+        log(f"  {spec.name}: f32 fused/per-row/batched/n_steps=0, "
+            f"{WIDE_GRID} fused/per-row/B=2/f64 ({clusters} CTAs per tile, "
+            f"coefficients {'staged' if cw['stage'] else 'in place'}) and "
+            f"{ODD_GRID} bitwise vs plain version; kernel vs naive err "
+            f"{err:.3g}")
     spec = st.SPECS["7pt-const"]
     state, coeffs = st.make_problem(spec, ODD_GRID, seed=4, device=dev)
     arrays, scalars = ir.split_coeffs(spec, coeffs)
-    out, _ = tally.kernel_vs_plain(spec, state, arrays, scalars, 5, d_w=8,
-                                   n_f=4, fused=True)
+    out, _, _ = tally.kernel_vs_plain(spec, state, arrays, scalars, 5,
+                                      d_w=8, n_f=4, fused=True)
     naive = ops.naive(spec, state, coeffs, 5)
     check(all(same(a, b) for a, b in zip(out, naive)),
           "non-multiple grid: kernel != naive")
     log(f"  non-multiple grid {ODD_GRID}: bitwise vs plain and naive")
+    check(set(staged.values()) == {0, 1},
+          f"{WIDE_GRID} did not run both coefficient paths: {staged}")
     log(f"phase 2 kernel checks: {time.perf_counter() - t0:.1f} s, "
         f"max |kernel - plain| {tally.max_abs_err['mwd']:.3g}")
 
 
-def phase_main_path(tally: Tally, dev) -> dict:
+def barrier_us(cluster: int, n_clusters: int, threads: int, dev) -> float:
+    """Microseconds per cluster barrier, timed with nothing between them."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import stencil_mwd as sm
+    lib = sm._mwd_lib()
+    lib.mwd_cluster_probe.restype = ctypes.c_int
+    lib.mwd_cluster_probe.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms = []
+    for iters in (200, 2200):
+        def probe(iters=iters):
+            check(lib.mwd_cluster_probe(cluster, n_clusters, threads, iters,
+                                        dev.index, stream) == 0,
+                  "cluster barrier probe failed to launch")
+        probe()
+        ms.append(cuda_ms(probe, TIMING_REPS))
+    return (ms[1] - ms[0]) * 1e3 / 2000
+
+
+def schedule_bound_ms(spec, comp, d_w) -> float:
+    """Bytes bound of the schedule's own traffic (one pass per row)."""
+    cells = MAIN_GRID[0] * MAIN_GRID[1] * MAIN_GRID[2]
+    r = spec.radius
+    grids = comp.n_rows * (2 * (d_w + 2 * r) / d_w + spec.n_coeff_arrays + 2)
+    return grids * cells * 4 / HBM_BPS * 1e3
+
+
+def phase_main_path(tally: Tally, dev, ptxas: dict) -> dict:
     import torch
     from repro_torch.core import ir
     from repro_torch.core import stencils as st
@@ -302,12 +409,46 @@ def phase_main_path(tally: Tally, dev) -> dict:
         sm.run_kernel(job)                      # warm-up
         kernel_ms = cuda_ms(lambda: sm.run_kernel(job), TIMING_REPS, restore)
         plain_ms = cuda_ms(lambda: sm.run_plain(job), 1, restore)
+        cfg = sm.kernel_config(job)
+        entry = next(v for k, v in ptxas.items()
+                     if f"mwd_row_kernelIffLb{cfg['stage']}ELi{cfg['hoist']}E"
+                     in k)
+        n_arr = spec.n_coeff_arrays
+        staged = ("no coefficient stream" if n_arr == 0 else
+                  f"all {n_arr} streams staged in shared memory"
+                  if cfg["stage"] else
+                  f"all {n_arr} streams read in place (L2/L1 prefetch)")
+        # waves of resident clusters (of single CTAs where the tile's CTAs
+        # run without a cluster) per row, and the barriers on each CTA
+        per_row = [int(v) for v in sm.halo_schedule(job)[1].max(1)]
+        unit = 1 if cfg["exchange"] else cfg["cluster"]
+        waves = [math.ceil(int(job.comp.active[i].sum()) * unit
+                           / cfg["max_active_clusters"])
+                 for i in range(job.comp.n_rows)]
+        probe = (barrier_us(cfg["cluster"], cfg["max_active_clusters"],
+                            cfg["threads"], dev)
+                 if any(per_row) else 0.0)
+        barrier_ms = sum(w * n for w, n in zip(waves, per_row)) * probe / 1e3
+        mode = ("a cluster trading x-halos" if cfg["exchange"] else
+                "no cluster: no update reads a neighbour's halo")
+        log(f"config {name}: {cfg['cluster']} CTAs per tile ({mode}), slab "
+            f"{cfg['slab']} columns, {cfg['threads']} threads, "
+            f"{cfg['smem_bytes']} bytes dynamic shared memory per CTA, "
+            f"{cfg['max_active_clusters']} clusters resident, coefficients: "
+            f"{staged}, {cfg['hoist']} groups' loads hoisted; ptxas "
+            f"{entry['registers']} registers, spills "
+            f"{entry['spill_stores']}/{entry['spill_loads']} bytes; cluster "
+            f"barriers per CTA and row {per_row}, waves {waves}, "
+            f"{probe:.3f} us each alone: {barrier_ms:.2f} ms of "
+            f"{kernel_ms:.2f}")
         mwd_ms = cuda_ms(lambda: ops.mwd(spec, state, coeffs, MAIN_STEPS,
                                          plan="auto"), 2)
         naive_ms = cuda_ms(lambda: ops.naive(spec, state, coeffs,
                                              MAIN_STEPS), 1)
+        comp = job.comp
         del job, saved
         b_ms, b_by = bound(spec, MAIN_GRID, MAIN_STEPS)
+        sched_ms = schedule_bound_ms(spec, comp, plan.d_w)
         lups = MAIN_GRID[0] * MAIN_GRID[1] * MAIN_GRID[2] * MAIN_STEPS
         row = {"op": name, "grid": list(MAIN_GRID), "steps": MAIN_STEPS,
                "plan": f"dw{plan.d_w}.nf{plan.n_f}."
@@ -315,7 +456,11 @@ def phase_main_path(tally: Tally, dev) -> dict:
                "kernel_ms": kernel_ms, "glups": lups / kernel_ms / 1e6,
                "launches_per_call": launches, "bound_ms": b_ms,
                "bound_by": b_by, "roofline_share": b_ms / kernel_ms,
+               "schedule_bound_ms": sched_ms,
+               "schedule_share": sched_ms / kernel_ms,
+               "barrier_ms": barrier_ms, "config": cfg,
                "plain_ms": plain_ms, "ops_mwd_ms": mwd_ms,
+               "host_ms": mwd_ms - kernel_ms,
                "naive_ms": naive_ms, "err_vs_naive": err,
                "bitwise_vs_naive": bitwise_naive, "gen_s": t_gen}
         rows[name] = row
@@ -543,26 +688,112 @@ def phase_baselines_main(tally: Tally, dev) -> tuple[dict, dict, dict]:
     return rows, launches, library
 
 
+def time_kernels() -> None:
+    """K1, K2 and K3 per paper op at 512^3 x 8, as one JSON line.
+
+    K1 on one prepared job (plan "auto"), K2 and K3 as ops.spatial and
+    ops.ghostzone with default parameters, as phases 3 and 5 time them.
+    Uses only interfaces the port has had since K2 and K3 were ported, so
+    it times an earlier checkout as well.
+    """
+    import torch
+    from repro_torch.core import ir
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_mwd as sm
+    dev = torch.device("cuda", 0)
+    out = {"mwd": {}, "sweep": {}, "fused": {}}
+    for name, spec in st.SPECS.items():
+        state, coeffs = st.make_problem(spec, MAIN_GRID, seed=0, device=dev)
+        arrays, scalars = ir.split_coeffs(spec, coeffs)
+        plan = ops.resolve_plan(spec, state, "auto")
+        job = sm.prepare(spec, state, arrays, scalars, MAIN_STEPS,
+                         d_w=plan.d_w, n_f=plan.n_f, fused=plan.fused)
+        saved = [b.clone() for b in job.bufs]
+
+        def restore():
+            for b, s in zip(job.bufs, saved):
+                b.copy_(s)
+
+        sm.run_kernel(job)                      # warm-up
+        out["mwd"][name] = cuda_ms(lambda: sm.run_kernel(job), TIMING_REPS,
+                                   restore)
+        del job, saved
+        for kernel, fn in (("sweep", ops.spatial), ("fused", ops.ghostzone)):
+            fn(spec, state, coeffs, MAIN_STEPS)     # warm-up
+            out[kernel][name] = cuda_ms(
+                lambda: fn(spec, state, coeffs, MAIN_STEPS), TIMING_REPS)
+        del state, coeffs, arrays
+        torch.cuda.empty_cache()
+    print("kernel_ms " + json.dumps(out), flush=True)
+
+
+def compare(other: Path) -> None:
+    """K1, K2 and K3 of the checkout at `other` and of this one, in turns
+    on one card.
+
+    Order: other, this, this, other; each in its own process, which builds
+    its own checkout's kernels.
+    """
+    runs = []
+    for root, side in ((other, "other"), (ROOT, "this"), (ROOT, "this"),
+                       (other, "other")):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--time-kernels", str(root)], capture_output=True, text=True,
+            timeout=1200)
+        check(proc.returncode == 0, f"kernel timing of {root} failed:\n"
+                                    f"{proc.stdout}\n{proc.stderr}")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("kernel_ms ")][-1]
+        runs.append((side, json.loads(line[len("kernel_ms "):])))
+        log(f"compare {side} {root}: {json.dumps(runs[-1][1])}")
+    for kernel, times in runs[0][1].items():
+        for name in times:
+            other_ms = [r[kernel][name] for side, r in runs
+                        if side == "other"]
+            this_ms = [r[kernel][name] for side, r in runs if side == "this"]
+            log(f"compare {kernel} {name}: other {other_ms} this {this_ms} "
+                f"speedup {min(other_ms) / max(this_ms):.3f}-"
+                f"{max(other_ms) / min(this_ms):.3f}x")
+
+
 def main() -> int:
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+    args = sys.argv[1:]
+    root = ROOT
+    if args[:1] == ["--time-kernels"] and len(args) == 2:
+        root = Path(args[1]).resolve()
+    elif args[:1] == ["--compare"] and len(args) == 2:
+        pass
+    elif args:
+        print("usage: chip_smoke.py [--compare OTHER_CHECKOUT]",
+              file=sys.stderr)
+        return 2
+    if not (root / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch not found beside this script)",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(root / "src"))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if args[:1] == ["--time-kernels"]:
+        time_kernels()
+        return 0
+    if args[:1] == ["--compare"]:
+        compare(Path(args[1]).resolve())
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
-    phase_setup()
+    ptxas = phase_setup()
     tally = Tally()
     phase_kernel_checks(tally, dev)
-    rows = phase_main_path(tally, dev)
+    rows = phase_main_path(tally, dev, ptxas)
     served = phase_serving(tally, dev)
     phase_baselines_small(tally, dev)
     base, base_launches, library = phase_baselines_main(tally, dev)

@@ -8,7 +8,8 @@ Each ``csrc/<name>.cu`` compiles into one shared library with a plain
 
 The library lands in ``build/`` beside this module (git-ignored), named by
 a hash of its source, every shared header ``csrc/*.cuh`` and the flags, so
-a changed source or header never loads a stale build. Nothing is compiled at import time: `load` builds at first use and
+a changed source or header never loads a stale build; nvcc's report lies
+beside it (``lib<name>-<hash>.log``), so a reused build still has one. Nothing is compiled at import time: `load` builds at first use and
 `build_all` builds every source at once, one nvcc process each.
 """
 
@@ -92,7 +93,10 @@ def _finish(name: str, started) -> Built:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed building {name}.cu "
                                f"(exit {proc.returncode}):\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
+    elif out.with_suffix(".log").exists():
+        log = out.with_suffix(".log").read_text()
     built = Built(ctypes.CDLL(str(out)), out, seconds, log)
     _loaded[name] = built
     return built

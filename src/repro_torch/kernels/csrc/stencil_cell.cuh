@@ -123,43 +123,125 @@ template <> __device__ inline double const_value<double>(float,
   return d;
 }
 
-// One lattice update. `src`, `prev` and `out` point at the cell: src is read
-// at every tap (`taps` are linear offsets in src's own layout, in group
-// order), prev at the cell (the t-1 level of a 2nd-order op), and the
-// result goes to out, which may alias prev. The coefficient streams are
-// read at `coeff[slot * cstride + coff]`.
-template <typename S, typename A, typename Off>
+// The left-to-right sum of taps [t0, t1) at each of the n cells into s.
+// With several cells (K1) two taps' loads are issued before they are
+// added; with one (K2, K3) taps go one at a time, since pairing them slowed
+// K2 by 12-19 % at the 7-point ops on an H100 (PERF.md).
+template <typename S, typename A, int V, typename Off>
+__device__ __forceinline__ void tap_sum(const S* src, const Off* taps, int t0,
+                                        int t1, int step, int n,
+                                        typename Num<A>::M (&s)[V]) {
+  using M = typename Num<A>::M;
+  const Off o0 = taps[t0];
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    if (v < n) s[v] = M(Num<S>::load(src[o0 + v * step]));
+  int t = t0 + 1;
+  if constexpr (V > 1) {
+    for (; t + 1 < t1; t += 2) {    // two taps' loads in flight at once
+      const Off oa = taps[t], ob = taps[t + 1];
+      S va[V], vb[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (v < n) {
+          va[v] = src[oa + v * step];
+          vb[v] = src[ob + v * step];
+        }
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (v < n) {
+          s[v] = Num<A>::round(s[v] + M(Num<S>::load(va[v])));
+          s[v] = Num<A>::round(s[v] + M(Num<S>::load(vb[v])));
+        }
+    }
+    if (t < t1) {
+      const Off o = taps[t];
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (v < n)
+          s[v] = Num<A>::round(s[v] + M(Num<S>::load(src[o + v * step])));
+    }
+  } else {
+    for (; t < t1; ++t)
+      s[0] = Num<A>::round(s[0] + M(Num<S>::load(src[taps[t]])));
+  }
+}
+
+// One lattice update at `n` <= V cells spaced `step` elements apart in
+// every stream (K2 and K3: one cell, V = 1). `src`, `prev` and `out` point
+// at the first cell: src is read at every tap (`taps` are offsets in src's
+// own layout, in group order), prev at the cell (the t-1 level of a
+// 2nd-order op), and the result goes to out, which may alias prev. The
+// coefficient streams are read at `coeff[slot * cstride + coff]`. Each tap
+// offset and each entry of the op's tables is read once for all V cells,
+// the V sums are independent, and the coefficient loads of the first H
+// groups are all issued before the first sum, so their latencies overlap
+// (H = 0: each group loads its own). None of this changes an operation or
+// its order, so every V and H gives the same bits.
+template <typename S, typename A, int V = 1, int H = 0, typename Off>
 __device__ __forceinline__ void update_cell(const S* src, const Off* taps,
                                             const S* prev, S* out,
                                             const S* coeff, long long coff,
-                                            long long cstride,
-                                            const Op& op) {
+                                            long long cstride, const Op& op,
+                                            int step = 0, int n = 1) {
   using M = typename Num<A>::M;
-  M acc = M(0);
-  for (int g = 0; g < op.n_groups; ++g) {
-    const int t0 = op.grp_start[g], t1 = op.grp_start[g + 1];
-    M s = M(Num<S>::load(src[taps[t0]]));
-    for (int t = t0 + 1; t < t1; ++t)
-      s = Num<A>::round(s + M(Num<S>::load(src[taps[t]])));
-    const M c = op.grp_kind[g]
-        ? M(Num<S>::load(coeff[op.grp_slot[g] * cstride + coff]))
-        : const_value<M>(op.grp_f[g], op.grp_d[g]);
-    const M term = Num<A>::round(c * s);
-    acc = g == 0 ? term : Num<A>::round(acc + term);
+  M acc[V], s[V], cv[H > 0 ? H : 1][V], sc[V];
+#pragma unroll
+  for (int g = 0; g < H; ++g)
+    if (g < op.n_groups && op.grp_kind[g]) {
+      const S* cs = coeff + op.grp_slot[g] * cstride + coff;
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (v < n) cv[g][v] = M(Num<S>::load(cs[v * step]));
+    }
+  if (op.time_order == 2 && op.scale_kind == 1) {
+    const S* cs = coeff + op.scale_slot * cstride + coff;
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (v < n) sc[v] = M(Num<S>::load(cs[v * step]));
   }
-  if (op.time_order == 2) {
-    const M lead = Num<A>::round(
-        Num<A>::round(M(2) * M(Num<S>::load(src[0])))
-        - M(Num<S>::load(prev[0])));
-    if (op.scale_kind == 1) {
-      const M c = M(Num<S>::load(coeff[op.scale_slot * cstride + coff]));
-      acc = Num<A>::round(lead + Num<A>::round(c * acc));
-    } else if (op.scale_kind == 0) {
-      const M c = const_value<M>(op.scale_f, op.scale_d);
-      acc = Num<A>::round(lead + Num<A>::round(c * acc));
-    } else {
-      acc = Num<A>::round(lead + acc);
+#pragma unroll
+  for (int g = 0; g < H; ++g) {
+    if (g >= op.n_groups) break;
+    tap_sum<S, A, V>(src, taps, op.grp_start[g], op.grp_start[g + 1], step,
+                     n, s);
+    const M k = const_value<M>(op.grp_f[g], op.grp_d[g]);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (v >= n) continue;
+      const M term = Num<A>::round((op.grp_kind[g] ? cv[g][v] : k) * s[v]);
+      acc[v] = g == 0 ? term : Num<A>::round(acc[v] + term);
     }
   }
-  out[0] = Num<S>::store(acc);
+  for (int g = H; g < op.n_groups; ++g) {
+    tap_sum<S, A, V>(src, taps, op.grp_start[g], op.grp_start[g + 1], step,
+                     n, s);
+    const S* cs = coeff + op.grp_slot[g] * cstride + coff;
+    const M k = const_value<M>(op.grp_f[g], op.grp_d[g]);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (v >= n) continue;
+      const M c = op.grp_kind[g] ? M(Num<S>::load(cs[v * step])) : k;
+      const M term = Num<A>::round(c * s[v]);
+      acc[v] = g == 0 ? term : Num<A>::round(acc[v] + term);
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    if (v >= n) continue;
+    if (op.time_order == 2) {
+      const M lead = Num<A>::round(
+          Num<A>::round(M(2) * M(Num<S>::load(src[v * step])))
+          - M(Num<S>::load(prev[v * step])));
+      if (op.scale_kind == 1) {
+        acc[v] = Num<A>::round(lead + Num<A>::round(sc[v] * acc[v]));
+      } else if (op.scale_kind == 0) {
+        const M c = const_value<M>(op.scale_f, op.scale_d);
+        acc[v] = Num<A>::round(lead + Num<A>::round(c * acc[v]));
+      } else {
+        acc[v] = Num<A>::round(lead + acc[v]);
+      }
+    }
+    out[v * step] = Num<S>::store(acc[v]);
+  }
 }

@@ -2,19 +2,30 @@
 
 The port of `repro.kernels.stencil_mwd`. The host side is the reference's
 `_mwd_run_impl`, carried over exactly: `sync_dirichlet_frame` on prev, the
-``2R | d_w`` and ``n_f | d_w`` checks, edge padding ``pz = R``,
-``py = 2*D_w + R``, ``px = R`` with z padded up to ``n_j * N_F``, the
-compiled schedule tables, the ``n_steps = 0`` identity, and the crop and
-parity pick at the end.
+``2R | d_w`` and ``n_f | d_w`` checks, edge padding of the two parity
+grids by ``pz = R``, ``py = 2*D_w + R``, ``px = R`` with z padded up to
+``n_j * N_F`` (and x on the right up to a multiple of 16 bytes, columns
+nothing reads), the compiled schedule tables, the ``n_steps = 0`` identity,
+and the crop and parity pick at the end. The coefficient streams are not
+padded: they are read only at updated cells, which are interior, so the
+kernel addresses them at the unpadded offset and `prepare` hands them over
+as they are.
 
 Two executors consume the padded parity grids and the tables:
 
-* `run_kernel` launches ``csrc/mwd.cu`` (one launch per diamond row, one
-  thread block per tile and batch entry, wavefront loop inside, in place in
-  global memory). It takes CUDA tensors only and raises on anything else.
+* `run_kernel` launches ``csrc/mwd.cu``: one launch per diamond row, one
+  thread-block cluster per tile and batch entry, its CTAs splitting x into
+  slabs, each CTA with a shared-memory z-ring of both parity windows (and
+  of the coefficient streams where they fit), x-halos exchanged through
+  distributed shared memory with a cluster barrier after each update whose
+  halo a later update reads (at dw8 none does at the 25-point ops, whose
+  CTAs then run without a cluster). The kernel picks the slab width,
+  cluster size, staging and block size (`kernel_config` reports them). It
+  takes CUDA tensors only and raises on anything else.
 * `run_plain` walks the same tables tile by tile in row-major order with
-  torch slicing, each span over the whole z extent. The CPU path uses it;
-  on the card only the chip check calls it, to hold the kernel against it.
+  torch slicing, each span over the whole z extent, on its own padded copy
+  of the coefficients. The CPU path uses it; on the card only the chip
+  check calls it, to hold the kernel against it.
 
 The dispatch is by the tensors' device and nothing else: CUDA tensors go to
 the kernel or the call raises, CPU tensors go to the plain version.
@@ -52,10 +63,10 @@ class Job:
     """One MWD advance, prepared for an executor.
 
     `bufs` are the padded parity grids ``([B,] nz_tot, nyp, nxp)`` (even,
-    odd) and `coeff` the padded stacked streams ``([B,] A, nz_tot, nyp,
-    nxp)``; both executors update `bufs` in place (per-row mode swaps in
-    fresh copies per row). `bufs` is None when the schedule is empty
-    (``n_steps == 0``); `cur`/`prev` then are the result.
+    odd) and `coeff` the caller's stacked streams ``([B,] A, nz, ny, nx)``,
+    unpadded and uncopied; both executors update `bufs` in place (per-row
+    mode swaps in fresh copies per row). `bufs` is None when the schedule
+    is empty (``n_steps == 0``); `cur`/`prev` then are the result.
     """
 
     op: ir.StencilOp
@@ -111,9 +122,12 @@ def prepare(spec: st.StencilSpec, state, arrays, scalars, n_steps: int, *,
                              f"{(nz, ny, nx)}")
     pz, px, py = r, r, 2 * d_w + r
     n_j = -(-(pz + nz + d_w) // n_f)
-    pads = ((pz, n_j * n_f - nz - pz), (py, py), (px, px))
+    # x rows a multiple of 16 bytes, so the kernel streams them 16 bytes at
+    # a time; the extra right-hand columns are never read
+    x_hi = px + (-(nx + 2 * px)) % (16 // cur.element_size())
+    pads = ((pz, n_j * n_f - nz - pz), (py, py), (px, x_hi))
     job.bufs = [edge_pad(cur, pads), edge_pad(prev, pads)]
-    job.coeff = edge_pad(arrays, pads) if spec.n_coeff_arrays else None
+    job.coeff = arrays.contiguous() if spec.n_coeff_arrays else None
     job.scalars = tuple(float(x) for x in scalars)
     job.comp = comp
     job.bounds = tuple(v + p for v, p in zip(interior,
@@ -139,7 +153,14 @@ def run_plain(job: Job) -> None:
     """The plain PyTorch version of the kernel: same tables, row-major tiles."""
     comp, op = job.comp, job.op
     lo_z, hi_z, lo_y, hi_y, lo_x, hi_x = job.bounds
-    py = job.pads[1]
+    pz, py, px = job.pads
+    coeff = None
+    if job.coeff is not None:
+        nz, ny, nx = job.coeff.shape[-3:]
+        nz_tot, nyp, nxp = job.bufs[0].shape[-3:]
+        coeff = edge_pad(job.coeff, ((pz, nz_tot - nz - pz),
+                                     (py, nyp - ny - py),
+                                     (px, nxp - nx - px)))
     for i in range(comp.n_rows):
         if not job.fused:
             job.bufs = [b.clone() for b in job.bufs]
@@ -155,46 +176,120 @@ def run_plain(job: Job) -> None:
                 p = (p0 + tau) % 2
                 src, dst = job.bufs[p], job.bufs[1 - p]
                 dst[..., lo_z:hi_z, ya:yb, lo_x:hi_x] = ir.sweep_region(
-                    op, src, dst, job.coeff, job.scalars, (lo_z, ya, lo_x),
+                    op, src, dst, coeff, job.scalars, (lo_z, ya, lo_x),
                     (hi_z, yb, hi_x), job.acc_dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def _mwd_lib() -> ctypes.CDLL:
-    """The built ``csrc/mwd.cu`` with its launcher's C signature declared."""
+    """The built ``csrc/mwd.cu`` with its launchers' C signatures declared."""
     lib = _build.load("mwd").lib
     lib.mwd_rows.restype = ctypes.c_int
     lib.mwd_rows.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int]
         + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.mwd_config.restype = ctypes.c_int
+    lib.mwd_config.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p]
+                               + [ctypes.c_int] + [ctypes.c_void_p])
     lib.mwd_error_string.restype = ctypes.c_char_p
     lib.mwd_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
+def halo_schedule(job: Job) -> tuple[np.ndarray, np.ndarray]:
+    """Which updates push x-halos, and the cluster barriers they cost.
+
+    Returns ``(push, barriers)``: ``push[row, tile, tau]`` is the kernel's
+    rule (``csrc/mwd.cu``), an update with cells pushes when a later update
+    of its tile, an odd number of updates on, has cells; ``barriers[row,
+    tile]`` counts the cluster barriers one CTA of that tile passes in the
+    row's launch: one after every pushing update that has z rows, and one
+    at the end of every step of a tile that pushes at all. At dw8 the
+    25-point ops (T = 2, one update with cells) never push.
+    """
+    comp, (pz, py, _) = job.comp, job.pads
+    lo_z, hi_z, lo_y, hi_y, lo_x, hi_x = job.bounds
+    cells = ((np.minimum(comp.y1 + py, hi_y) > np.maximum(comp.y0 + py, lo_y))
+             & (hi_x > lo_x))                          # (row, tile, tau)
+    push = np.zeros_like(cells)
+    for t in range(comp.t_steps - 1):
+        push[..., t] = cells[..., t] & cells[..., t + 1::2].any(-1)
+    zs = (np.arange(job.n_j)[:, None] * job.n_f
+          - (np.arange(comp.t_steps)[None, :] + 1) * job.op.radius)
+    z_rows = ((np.minimum(zs + job.n_f, hi_z) > np.maximum(zs, lo_z))
+              .sum(0))                                  # steps with rows
+    barriers = ((push[..., :-1] * z_rows[:-1]).sum(-1)
+                + job.n_j * push.any(-1))
+    if job.fused:
+        barriers = barriers * comp.active.astype(bool)
+    return push, barriers
+
+
+def _geometry(job: Job) -> np.ndarray:
+    """The launcher's ``geo`` table of a job (see ``csrc/mwd.cu``)."""
+    comp, op = job.comp, job.op
+    nz_tot, nyp, nxp = job.bufs[0].shape[-3:]
+    nz, ny, nx = job.cur.shape[-3:]
+    return np.asarray([
+        nz_tot * nyp * nxp, nyp * nxp, nxp, op.n_coeff_arrays, job.n_j,
+        job.n_f, op.radius, comp.t_steps, comp.n_tiles, *job.bounds,
+        int(job.fused), nz, ny, nx, *job.pads, comp.d_w, len(op.taps),
+        sum(coeff.kind == "array" for coeff, _ in op.groups),
+        int(halo_schedule(job)[0].any())], np.int64)
+
+
+def _check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"MWD kernel {what} failed ({rc}): "
+                           f"{lib.mwd_error_string(rc).decode()}")
+
+
+def _type_codes(job: Job) -> tuple[int, int]:
+    dt = job.bufs[0].dtype
+    acc = job.acc_dtype if job.acc_dtype is not None else dt
+    if dt not in TYPE_CODES or acc not in TYPE_CODES:
+        raise ValueError(f"the MWD kernel has no {dt}/{acc} variant")
+    return TYPE_CODES[dt], TYPE_CODES[acc]
+
+
+def kernel_config(job: Job) -> dict:
+    """The launch configuration the kernel picks for a prepared CUDA job.
+
+    Keys: cluster (CTAs per tile), slab (x columns per CTA), stage
+    (coefficients staged in shared memory), threads, smem_bytes (dynamic
+    shared memory per CTA), max_active_clusters, depth and cdepth (ring
+    depths in z rows), hoist (coefficient groups whose loads are issued
+    together), exchange (1: the CTAs of a tile run as a cluster and trade
+    halos; 0: no update needs a neighbour's halo, so they run alone).
+    """
+    dev = check_kernel_inputs("MWD", job.bufs)
+    lib = _mwd_lib()
+    out = np.zeros(10, np.int32)
+    _check(lib, lib.mwd_config(*_type_codes(job), ptr(_geometry(job)),
+                               dev.index, ptr(out)), "configuration")
+    keys = ("cluster", "slab", "stage", "threads", "smem_bytes",
+            "max_active_clusters", "depth", "cdepth", "hoist", "exchange")
+    return dict(zip(keys, (int(v) for v in out)))
+
+
 def run_kernel(job: Job) -> None:
     """Launch the CUDA kernel on the job's CUDA tensors, one launch per row."""
-    bufs = job.bufs
-    streams = bufs + ([job.coeff] if job.coeff is not None else [])
+    streams = job.bufs + ([job.coeff] if job.coeff is not None else [])
     dev = check_kernel_inputs("MWD", streams)
-    dt = bufs[0].dtype
-    acc = job.acc_dtype if job.acc_dtype is not None else dt
-    if acc not in TYPE_CODES:
-        raise ValueError(f"the MWD kernel has no {dt}/{acc} variant")
+    codes = _type_codes(job)
     comp, op = job.comp, job.op
-    nz_tot, nyp, nxp = bufs[0].shape[-3:]
-    batch = bufs[0].numel() // (nz_tot * nyp * nxp)
-    sz, sy = nyp * nxp, nxp
-    taps, groups, values = op_tables(op, job.scalars, sz, sy)
+    nz_tot, nyp, nxp = job.bufs[0].shape[-3:]
+    batch = job.bufs[0].numel() // (nz_tot * nyp * nxp)
+    taps, groups, values = op_tables(op, job.scalars, nyp * nxp, nxp)
+    taps3 = np.asarray([t.offset for _, members in op.groups
+                        for t in members], np.int32)
     py = job.pads[1]
     tables = torch.from_numpy(np.concatenate([
-        comp.parity, (comp.y0 + py).ravel(), (comp.y1 + py).ravel(),
-        comp.active.ravel()]).astype(np.int32)).to(dev)
-    geo = np.asarray([
-        nz_tot * nyp * nxp, sz, sy, op.n_coeff_arrays, job.n_j, job.n_f,
-        op.radius, comp.t_steps, comp.n_tiles, *job.bounds, int(job.fused)],
-        np.int64)
+        comp.parity, (comp.w0 + py).ravel(), comp.active.ravel(),
+        (comp.y0 + py).ravel(), (comp.y1 + py).ravel()]).astype(
+            np.int32)).to(dev)
+    geo = _geometry(job)
     lib = _mwd_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -202,15 +297,12 @@ def run_kernel(job: Job) -> None:
         check_kernel_inputs(
             "MWD", job.bufs + ([job.coeff] if job.coeff is not None else []))
         rc = lib.mwd_rows(
-            TYPE_CODES[dt], TYPE_CODES[acc], job.bufs[0].data_ptr(),
-            job.bufs[1].data_ptr(),
+            *codes, job.bufs[0].data_ptr(), job.bufs[1].data_ptr(),
             job.coeff.data_ptr() if job.coeff is not None else None,
-            ptr(geo), ptr(taps), len(taps), ptr(groups), ptr(values),
-            len(op.groups), op.time_order, tables.data_ptr(), comp.n_rows,
-            row_begin, row_end, batch, dev.index, stream)
-        if rc != 0:
-            raise RuntimeError(f"MWD kernel launch failed ({rc}): "
-                               f"{lib.mwd_error_string(rc).decode()}")
+            ptr(geo), ptr(taps), ptr(taps3), len(taps), ptr(groups),
+            ptr(values), len(op.groups), op.time_order, tables.data_ptr(),
+            comp.n_rows, row_begin, row_end, batch, dev.index, stream)
+        _check(lib, rc, "launch")
         LAUNCHES.count += row_end - row_begin
 
     if job.fused:

@@ -3,6 +3,8 @@
 Runs without nvcc or a card: it only computes build paths and host tables.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,15 @@ def test_every_kernel_source_includes_the_shared_cell():
         text = (_build.CSRC / name).read_text()
         assert '#include "stencil_cell.cuh"' in text
         assert "update_cell<" in text
+
+
+def test_the_lattice_update_is_defined_only_in_the_shared_cell():
+    """No kernel source carries its own copy of the arithmetic."""
+    header = (_build.CSRC / "stencil_cell.cuh").read_text()
+    definition = re.compile(r"\bvoid\s+(update_cell\w*|tap_sum\w*)\s*\(")
+    assert sorted(definition.findall(header)) == ["tap_sum", "update_cell"]
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        assert definition.findall(path.read_text()) == [], path.name
 
 
 @pytest.mark.parametrize("name", list(tst.SPECS))

@@ -92,6 +92,100 @@ def test_kernel_batched_equals_per_item_loop(cuda):
         assert_bitwise((cur[i], prev[i]), tops.mwd(spec, state, coeffs, 5))
 
 
+MID_GRID = (48, 64, 40)
+ODD_GRID = (37, 53, 29)
+WIDE_GRID = (20, 40, 200)     # x: 2-7 CTAs per tile, by the kernel's choice
+
+
+def _chosen_vs_plain(spec, state, arrays, scalars, n_steps, **kw):
+    """The kernel, as it configures itself, against its plain version on the
+    full padded grids; returns the configuration it chose."""
+    jobs = [tkern.prepare(spec, state, arrays, scalars, n_steps, **kw)
+            for _ in range(2)]
+    cfg = tkern.kernel_config(jobs[0])
+    tkern.run_kernel(jobs[0])
+    tkern.run_plain(jobs[1])
+    torch.cuda.synchronize()
+    assert_bitwise(jobs[0].bufs, jobs[1].bufs)
+    return cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(tst.SPECS) + ["aniso11"])
+def test_cluster_kernel_bitwise_equals_plain_version(cuda, name):
+    """Several CTAs per tile (halos through distributed shared memory where
+    an update pushes them), fused and per-row; MID_GRID and ODD_GRID with
+    one CTA per tile."""
+    spec = _spec(name)
+    d_w = 12 if name == "aniso11" else 8
+    state, coeffs = tst.make_problem(spec, WIDE_GRID, seed=1, device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    for fused in (True, False):
+        cfg = _chosen_vs_plain(spec, state, arrays, scalars, 8, d_w=d_w,
+                               n_f=2, fused=fused)
+        assert 1 < cfg["cluster"] < 8
+        assert cfg["exchange"] == (spec.radius < 4)
+    for grid, n_f, n_steps in ((MID_GRID, 2, 8), (ODD_GRID, 4, 5)):
+        state, coeffs = tst.make_problem(spec, grid, seed=2, device=cuda)
+        arrays, scalars = tir.split_coeffs(spec, coeffs)
+        cfg = _chosen_vs_plain(spec, state, arrays, scalars, n_steps,
+                               d_w=d_w, n_f=n_f, fused=True)
+        assert cfg["cluster"] == 1
+
+
+@pytest.mark.gpu
+def test_cluster_kernel_stages_coefficients_where_they_fit(cuda):
+    """At WIDE_GRID the kernel stages 25pt-const's one coefficient stream
+    and reads 7pt-var's seven in place; both bitwise."""
+    for name, stage in (("25pt-const", 1), ("7pt-var", 0)):
+        spec = tst.SPECS[name]
+        state, coeffs = tst.make_problem(spec, WIDE_GRID, seed=8,
+                                         device=cuda)
+        arrays, scalars = tir.split_coeffs(spec, coeffs)
+        cfg = _chosen_vs_plain(spec, state, arrays, scalars, 6, d_w=8,
+                               n_f=2, fused=True)
+        assert cfg["stage"] == stage
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["7pt-var", "25pt-const"])
+def test_cluster_kernel_batched_and_f64(cuda, name):
+    spec = tst.SPECS[name]
+    probs = [tst.make_problem(spec, WIDE_GRID, seed=s, device=cuda)
+             for s in (3, 4)]
+    state = tuple(torch.stack([p[0][i] for p in probs]) for i in (0, 1))
+    arrays = torch.stack([tir.split_coeffs(spec, p[1])[0] for p in probs])
+    scalars = tir.split_coeffs(spec, probs[0][1])[1]
+    cfg = _chosen_vs_plain(spec, state, arrays, scalars, 8, d_w=8, n_f=2,
+                           fused=True)
+    assert cfg["cluster"] > 1
+    s64, c64 = tst.make_problem(spec, WIDE_GRID, dtype="f64", seed=5,
+                                device=cuda)
+    a64, sc64 = tir.split_coeffs(spec, c64)
+    cfg = _chosen_vs_plain(spec, s64, a64, sc64, 8, d_w=8, n_f=2,
+                           fused=True)
+    assert cfg["cluster"] > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["7pt-const", "25pt-var"])
+def test_cluster_size_follows_the_x_width(cuda, name):
+    """Fewer CTAs than the cluster maximum where x is narrow; 8 at 512."""
+    spec = tst.SPECS[name]
+    state, coeffs = tst.make_problem(spec, WIDE_GRID, seed=6, device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    cfg = _chosen_vs_plain(spec, state, arrays, scalars, 4, d_w=8, n_f=2,
+                           fused=True)
+    assert 1 < cfg["cluster"] < 8
+    state, coeffs = tst.make_problem(spec, (12, 24, 512), seed=7,
+                                     device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    cfg = _chosen_vs_plain(spec, state, arrays, scalars, 2, d_w=8, n_f=2,
+                           fused=True)
+    assert (cfg["cluster"], cfg["slab"]) == (8, 64)
+    assert cfg["max_active_clusters"] >= 1
+
+
 def _spec(name):
     return aniso11(tir) if name == "aniso11" else tst.SPECS[name]
 
