@@ -31,13 +31,22 @@ failure so the script exits non-zero:
    ops.mwd, with K1's launch count read around the serving run, and K1
    against its plain version at the serving batch's shape (B=2, 512^3);
 5. the baselines: K2 (the spatial sweep) and K3 (the ghost-zone pass)
-   against their plain versions at the mid-size grid and at a grid that is
-   not a multiple of bz/by, for the four paper ops and aniso11 (f32
-   bitwise, native bf16 within op.tolerance, n_steps=0, a t_block that does
-   not divide n_steps); then ops.spatial and ops.ghostzone at 512^3 x 8
-   steps with default parameters against ops.naive, K2 and K3 against
-   their plain versions on the same inputs, their times by CUDA events
-   beside their bounds, and F.conv3d as K2's library yardstick (7pt-const).
+   against their plain versions at the mid-size grid, at a grid that is
+   not a multiple of bz/by and at a 200-wide one, for the four paper ops
+   and aniso11 (f32 and f64 bitwise, native bf16 and fp16: K3 bitwise, K2
+   within op.tolerance; n_steps=0, t_block 1 to 4, a t_block that does
+   not divide n_steps, x tiles that do not divide nx), and K3 at the
+   25-point ops where its layout changes: t_block 6 (y sub-tiles), a block
+   of 80 rows (y sub-tiles) and t_block 8 in f32 and f64 (a pass split
+   into launches); then ops.spatial
+   and ops.ghostzone at 512^3 x 8 steps with default parameters against
+   ops.naive, K2 and K3 against their plain versions on the same inputs,
+   their times by CUDA events beside their bounds (K3 also beside its
+   window bound, stencil_fused.window_bytes), a K3 `config` line per op
+   (x tile, y tile, threads, planes a step, layout, launches per pass,
+   shared memory, resident CTAs, coefficient streams, ptxas registers and
+   spills), and F.conv3d as K2's library yardstick
+   (7pt-const).
 
 Before the last line come one `baseline` JSON line per (op, method) and a
 JSON object with one entry per kernel; the last line is
@@ -47,11 +56,15 @@ result. It imports nothing of JAX.
 
 With --compare it only times K1, K2 and K3 per paper op at 512^3 x 8,
 for the checkout at OTHER_CHECKOUT and for this one in turns (other, this,
-this, other), each in its own process that builds its own kernels.
+this, other), each in its own process that builds its own kernels. With
+--sweep-k3 it only times K3 per paper op at every tile plan that fits
+(`sweep_fused`), the measurement behind its choice of x tile, threads,
+layout and planes a step.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import re
@@ -555,35 +568,41 @@ def phase_baselines_small(tally: Tally, dev) -> None:
     from repro_torch.kernels import stencil_fused as fu
     from repro_torch.kernels import stencil_sweep as sw
     t0 = time.perf_counter()
-    # (grid, dtype, ops.spatial kwargs, ops.ghostzone kwargs, n_steps)
+    # (grid, dtype, ops.spatial kwargs, ops.ghostzone kwargs, n_steps); K3
+    # takes its own x tile, which divides none of these nx
     cases = [(MID_GRID, "f32", dict(bz=8), dict(t_block=3, bz=8, by=8), 5),
              (MID_GRID, "f32", {}, {}, MAIN_STEPS),
              (ODD_GRID, "f32", dict(bz=8), dict(t_block=3, bz=8, by=8), 5),
-             (MID_GRID, "bf16", dict(bz=8), dict(t_block=3, bz=8, by=8), 5)]
+             (WIDE_GRID, "f32", {}, dict(t_block=1), 3),
+             (MID_GRID, "f64", {}, dict(t_block=4), 5),
+             (MID_GRID, "bf16", dict(bz=8), dict(t_block=3, bz=8, by=8), 5),
+             (MID_GRID, "fp16", {}, dict(t_block=2), 5)]
     for spec in list(st.SPECS.values()) + [aniso11(ir)]:
         for grid, dt, kw_s, kw_g, n in cases:
             state, coeffs = st.make_problem(spec, grid, dtype=dt, seed=5,
                                             device=dev)
             arrays, scalars = ir.split_coeffs(spec, coeffs)
-            tol = None if dt == "f32" else spec.tolerance(dt)
+            tol = None if dt in ("f32", "f64") else spec.tolerance(dt)
             what = f"{spec.name} {grid} {dt} n_steps={n}"
             got_s = ops.spatial(spec, state, coeffs, n, **kw_s)
             want = plain_spatial(spec, state, arrays, scalars, n)
             torch.cuda.synchronize()
             bit_s = tally.record("sweep", got_s, want, f"{what} {kw_s}", tol)
+            kw = {**GHOSTZONE_DEFAULTS, **kw_g}
+            cfg = fu.kernel_config(spec, state[0], kw["t_block"], bz=kw["bz"],
+                                   by=kw["by"])
             got_g = ops.ghostzone(spec, state, coeffs, n, **kw_g)
-            want = plain_ghostzone(spec, state, arrays, scalars, n,
-                                   **{**GHOSTZONE_DEFAULTS, **kw_g})
+            want = plain_ghostzone(spec, state, arrays, scalars, n, **kw)
             torch.cuda.synchronize()
-            bit_g = tally.record("fused", got_g, want, f"{what} {kw_g}", tol)
+            tally.record("fused", got_g, want, f"{what} {kw_g} {cfg}")
             if dt == "f32":
                 naive = ops.naive(spec, state, coeffs, n)
                 check(all(same(a, b) for a, b in zip(got_s, naive))
                       and all(same(a, b) for a, b in zip(got_g, naive)),
                       f"{what}: spatial/ghostzone != naive")
-            log(f"  {what}: K2 {kw_s} and K3 {kw_g} "
-                f"{'bitwise' if bit_s and bit_g else 'within op.tolerance'}"
-                f" vs plain")
+            log(f"  {what}: K2 {kw_s} "
+                f"{'bitwise' if bit_s else 'within op.tolerance'}, K3 {kw_g}"
+                f" bitwise vs plain ({fused_plan_text(cfg)})")
         # n_steps = 0: the identity, no launch
         before = (sw.LAUNCHES.count, fu.LAUNCHES.count)
         for fn in (ops.spatial, ops.ghostzone):
@@ -592,6 +611,36 @@ def phase_baselines_small(tally: Tally, dev) -> None:
                   f"{spec.name}: {fn.__name__} n_steps=0 is not the identity")
         check((sw.LAUNCHES.count, fu.LAUNCHES.count) == before,
               f"{spec.name}: n_steps=0 launched a kernel")
+    # K3 where no layout holds a block of by rows (y sub-tiles) or a pass
+    # in one launch (launches of fewer steps)
+    for spec in (st.SPECS["25pt-const"], st.SPECS["25pt-var"]):
+        for dt, kw_g, n, sub, split in (
+                ("f32", dict(t_block=6), 7, True, False),
+                ("f32", dict(by=80), 5, True, False),
+                ("f32", dict(t_block=8), 8, True, True),
+                ("f64", dict(t_block=8), 8, True, True)):
+            state, coeffs = st.make_problem(spec, MID_GRID, dtype=dt, seed=6,
+                                            device=dev)
+            arrays, scalars = ir.split_coeffs(spec, coeffs)
+            kw = {**GHOSTZONE_DEFAULTS, **kw_g}
+            cfg = fu.kernel_config(spec, state[0], kw["t_block"], bz=kw["bz"],
+                                   by=kw["by"])
+            check((cfg["ty"] < kw["by"]) == sub
+                  and (len(cfg["launches"]) > 1) == split,
+                  f"{spec.name} {dt} {kw_g}: unexpected K3 plan {cfg}")
+            before = fu.LAUNCHES.count
+            got_g = ops.ghostzone(spec, state, coeffs, n, **kw_g)
+            want = plain_ghostzone(spec, state, arrays, scalars, n, **kw)
+            torch.cuda.synchronize()
+            launched = fu.LAUNCHES.count - before
+            what = f"{spec.name} {MID_GRID} {dt} n_steps={n} {kw_g}"
+            tally.record("fused", got_g, want, f"{what} {cfg}")
+            check(launched == sum(len(fu.launch_steps(
+                spec, tb, kw["by"], MID_GRID[2], state[0].element_size()))
+                for tb in fu.pass_lengths(n, kw["t_block"])),
+                f"{what}: {launched} K3 launches")
+            log(f"  {what}: K3 bitwise vs plain, {launched} launches "
+                f"({fused_plan_text(cfg)})")
     log(f"phase 5a baselines, small grids: {time.perf_counter() - t0:.1f} s,"
         f" max |kernel - plain| K2 {tally.max_abs_err['sweep']:.3g}"
         f" K3 {tally.max_abs_err['fused']:.3g}")
@@ -619,7 +668,46 @@ def library_conv3d(spec, state, scalars, dev) -> dict:
             "library_err_vs_k2": err}
 
 
-def phase_baselines_main(tally: Tally, dev) -> tuple[dict, dict, dict]:
+def fused_plan_text(cfg: dict) -> str:
+    """K3's plan from stencil_fused.kernel_config, in words."""
+    return (f"bx {cfg['bx']}, ty {cfg['ty']}, {cfg['threads']} threads, "
+            f"{cfg['planes']} planes a step, layout {cfg['layout']}, "
+            f"launches of {cfg['launches']} steps")
+
+
+def fused_config_line(spec, cur, ptxas: dict) -> dict:
+    """K3's launch configuration for ops.ghostzone's defaults on `cur`, its
+    ptxas report, and its window bound (stencil_fused.window_bytes) summed
+    over the passes of MAIN_STEPS."""
+    from repro_torch.kernels import stencil_fused as fu
+    kw = {k: GHOSTZONE_DEFAULTS[k] for k in ("bz", "by")}
+    cfg = fu.kernel_config(spec, cur, GHOSTZONE_DEFAULTS["t_block"], **kw)
+    layout = int(cfg["layout"] == "cur-in-place")
+    entry = next(v for k, v in ptxas.items()
+                 if f"fused_kernelIfLb{layout}ELi{cfg['hoist']}ELi"
+                    f"{cfg['planes']}E" in k)
+    check(len(cfg["launches"]) == 1,
+          f"{spec.name}: K3 splits a pass at the defaults: {cfg}")
+    window = sum(fu.window_bytes(spec, cur.shape, tb, kw["bz"], kw["by"],
+                                 cfg["bx"], cur.element_size(), ty=cfg["ty"])
+                 for tb in fu.pass_lengths(MAIN_STEPS,
+                                           GHOSTZONE_DEFAULTS["t_block"]))
+    n_arr = spec.n_coeff_arrays
+    streams = ("no coefficient stream" if n_arr == 0 else
+               f"all {n_arr} streams read in place")
+    log(f"config {spec.name} K3: {fused_plan_text(cfg)}, "
+        f"{cfg['smem_bytes']} bytes dynamic shared "
+        f"memory per CTA, {cfg['resident']} CTAs resident per SM, "
+        f"{cfg['ctas']} CTAs per pass, coefficients: {streams}; ptxas "
+        f"{entry['registers']} registers, spills {entry['spill_stores']}/"
+        f"{entry['spill_loads']} bytes")
+    return {"config": cfg, "registers": entry["registers"],
+            "spill_stores": entry["spill_stores"],
+            "window_bound_ms": window / HBM_BPS * 1e3}
+
+
+def phase_baselines_main(tally: Tally, dev,
+                         ptxas: dict) -> tuple[dict, dict, dict]:
     """ops.spatial / ops.ghostzone at 512^3 against naive, plain, bound."""
     import torch
     from repro_torch.core import ir
@@ -679,6 +767,9 @@ def phase_baselines_main(tally: Tally, dev) -> tuple[dict, dict, dict]:
             if name == "7pt-const" and method == "spatial":
                 library = library_conv3d(spec, state, scalars, dev)
                 row.update(library)
+            if method == "ghostzone":
+                row.update(fused_config_line(spec, state[0], ptxas))
+                row["window_share"] = row["window_bound_ms"] / kernel_ms
             rows[(name, method)] = row
             log("baseline " + json.dumps(row))
         del state, coeffs, arrays, naive
@@ -728,6 +819,59 @@ def time_kernels() -> None:
     print("kernel_ms " + json.dumps(out), flush=True)
 
 
+def sweep_fused() -> None:
+    """K3 at every tile plan that fits, per paper op at 512^3 x 8 steps.
+
+    Times ops.ghostzone (defaults t_block=4, bz=by=16) with the kernel's own
+    choice replaced by each (layout, bx >= 16, threads; one and two planes
+    a step at the chosen tile where it reads level 0 in place and hoists no
+    coefficient load) in turn, each
+    held bitwise against the kernel's own choice; one `k3_plan` JSON line
+    per plan. The measurement behind `stencil_fused.choose_tile`.
+    """
+    import torch
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_fused as fu
+    dev = torch.device("cuda", 0)
+    own = fu.choose_tile
+    tb, by = GHOSTZONE_DEFAULTS["t_block"], GHOSTZONE_DEFAULTS["by"]
+    for name, spec in st.SPECS.items():
+        state, coeffs = st.make_problem(spec, MAIN_GRID, seed=0, device=dev)
+        want = ops.ghostzone(spec, state, coeffs, MAIN_STEPS)
+        chosen = own(spec, tb, by, MAIN_GRID[2], 4)
+        plans = [fu.tile_layout(spec, tb, by, bx, 4, layout=layout,
+                                threads=threads, planes=planes)
+                 for layout, bx, threads in itertools.product(
+                     ("all-rings", "cur-in-place"), fu.BX_CHOICES[:-1],
+                     (256, 512, 1024))
+                 for planes in ((1, 2) if (layout, bx, threads) == (
+                     chosen.layout, chosen.bx, chosen.threads)
+                     and layout == "cur-in-place" and chosen.hoist == 0
+                     else (1,))]
+        plans = [p for p in dict.fromkeys(plans) if p.fits]
+        for plan in plans:
+            fu.choose_tile = lambda *a, plan=plan: plan
+            try:
+                got = ops.ghostzone(spec, state, coeffs, MAIN_STEPS)
+                check(all(same(a, b) for a, b in zip(got, want)),
+                      f"{name} {plan}: K3 != its own choice")
+                del got
+                ms = cuda_ms(lambda: ops.ghostzone(spec, state, coeffs,
+                                                   MAIN_STEPS), 3)
+                cfg = fu.kernel_config(spec, state[0], tb)
+            finally:
+                fu.choose_tile = own
+            log("k3_plan " + json.dumps({
+                "op": name, "layout": plan.layout, "bx": plan.bx,
+                "planes": plan.planes, "threads": plan.threads,
+                "hoist": plan.hoist,
+                "smem_bytes": plan.smem_bytes, "resident": cfg["resident"],
+                "ms": ms, "chosen": plan == chosen}))
+        del state, coeffs, want
+        torch.cuda.empty_cache()
+
+
 def compare(other: Path) -> None:
     """K1, K2 and K3 of the checkout at `other` and of this one, in turns
     on one card.
@@ -765,8 +909,8 @@ def main() -> int:
         root = Path(args[1]).resolve()
     elif args[:1] == ["--compare"] and len(args) == 2:
         pass
-    elif args:
-        print("usage: chip_smoke.py [--compare OTHER_CHECKOUT]",
+    elif args and args != ["--sweep-k3"]:
+        print("usage: chip_smoke.py [--compare OTHER_CHECKOUT | --sweep-k3]",
               file=sys.stderr)
         return 2
     if not (root / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -786,6 +930,9 @@ def main() -> int:
     if args[:1] == ["--compare"]:
         compare(Path(args[1]).resolve())
         return 0
+    if args == ["--sweep-k3"]:
+        sweep_fused()
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -796,7 +943,7 @@ def main() -> int:
     rows = phase_main_path(tally, dev, ptxas)
     served = phase_serving(tally, dev)
     phase_baselines_small(tally, dev)
-    base, base_launches, library = phase_baselines_main(tally, dev)
+    base, base_launches, library = phase_baselines_main(tally, dev, ptxas)
     k = rows[SERVE_OP]
     kernels = [{
         "name": "mwd", "route": "cuda",

@@ -71,10 +71,9 @@
 // -fmad=false so no multiply-add is contracted and the two agree bit for
 // bit. The tap and group order is op.groups order.
 
-#include <stdint.h>
-
 #include <cooperative_groups.h>
 
+#include "async_copy.cuh"
 #include "stencil_cell.cuh"
 
 namespace cg = cooperative_groups;
@@ -107,53 +106,6 @@ struct Geo {
   int depth, cdepth, wy, wx;              // ring depths, window extents
   int tab_bytes;                          // tap table, ahead of the rings
 };
-
-struct TapDelta {
-  signed char dz[STENCIL_MAX_TAPS], dy[STENCIL_MAX_TAPS], dx[STENCIL_MAX_TAPS];
-};
-
-template <typename S>
-__device__ __forceinline__ void copy_async(S* dst, const S* src) {
-  if constexpr (sizeof(S) == 4 || sizeof(S) == 8) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
-                 :: "r"(d), "l"(src), "n"((int)sizeof(S)) : "memory");
-  } else {
-    *dst = *src;            // cp.async moves 4, 8 or 16 bytes, not 2
-  }
-}
-
-// copy n elements from global to shared memory: 16-byte cp.async where
-// both ends are 16-byte aligned (they are together or not at all when the
-// row strides are multiples of 16 bytes), else one element at a time
-template <typename S>
-__device__ __forceinline__ void copy_row(S* dst, const S* src, int n,
-                                         int lane) {
-  constexpr int E = 16 / sizeof(S);
-  int head = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0
-      && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    head = n / E * E;
-    for (int x = lane * E; x < head; x += 32 * E) {
-      const unsigned d = (unsigned)__cvta_generic_to_shared(dst + x);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                   :: "r"(d), "l"(src + x) : "memory");
-    }
-  }
-  for (int x = head + lane; x < n; x += 32) copy_async(dst + x, src + x);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most `pending` (0 or 1) committed groups are in flight
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  if (pending)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // all threads of the cluster: prior shared and distributed shared memory
 // writes released before, acquired after
@@ -622,14 +574,7 @@ int mwd_rows(int stream_type, int acc_type, void* buf_e, void* buf_o,
       || batch < 1 || batch > 65535 || row_begin < 0 || row_end > n_rows)
     return E_GEOMETRY;
   TapDelta td;
-  for (int t = 0; t < n_taps; ++t) {
-    for (int a = 0; a < 3; ++a)
-      if (taps3[3 * t + a] < -g.radius || taps3[3 * t + a] > g.radius)
-        return E_OP;
-    td.dz[t] = (signed char)taps3[3 * t];
-    td.dy[t] = (signed char)taps3[3 * t + 1];
-    td.dx[t] = (signed char)taps3[3 * t + 2];
-  }
+  if (make_tap_delta(td, taps3, n_taps, g.radius)) return E_OP;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -2,14 +2,15 @@
 // (mwd.cu: K1, sweep.cu: K2, fused.cu: K3).
 //
 // It holds the C-ABI type and error codes, the operator table `Op` that the
-// Python wrappers fill from a StencilOp, the numeric traits `Num<>` and
-// `update_cell`. This is the one arithmetic that all three kernels and the
-// plain PyTorch sweep (repro_torch.core.ir.sweep_region) agree on bit for
-// bit: the taps are summed left-associatively per coefficient group in
-// `op.groups` order, one multiply per group, groups accumulated in order,
-// and a 2nd-order op wraps it as 2*V - prev [+ scale*acc]. Every operation
-// rounds to the accumulator type, and the kernels are built with
-// -fmad=false so that no multiply-add is contracted.
+// Python wrappers fill from a StencilOp (and its taps' displacements,
+// `TapDelta`), the numeric traits `Num<>` and `update_cell`. This is the
+// one arithmetic that all three kernels and the plain PyTorch sweep
+// (repro_torch.core.ir.sweep_region) agree on bit for bit: the taps are
+// summed left-associatively per coefficient group in `op.groups` order, one
+// multiply per group, groups accumulated in order, and a 2nd-order op wraps
+// it as 2*V - prev [+ scale*acc]. Every operation rounds to the accumulator
+// type, and the kernels are built with -fmad=false so that no multiply-add
+// is contracted.
 
 #pragma once
 
@@ -40,6 +41,13 @@ struct Op {
   long long tap_off[STENCIL_MAX_TAPS]; // linear offsets in the grid, group order
 };
 
+// The (dz, dy, dx) of every tap, group order: the kernels that keep their
+// levels in shared-memory z-rings (K1, K3) build per-slot offset tables
+// from it.
+struct TapDelta {
+  signed char dz[STENCIL_MAX_TAPS], dy[STENCIL_MAX_TAPS], dx[STENCIL_MAX_TAPS];
+};
+
 // Fill `op` from the wrappers' tables:
 //   taps[n_taps]     linear tap offsets in group order
 //   groups[3*G+2]    (count, kind, slot) per group, then (scale_kind, slot)
@@ -68,6 +76,22 @@ static inline int make_op(Op& op, const long long* taps, int n_taps,
   op.scale_d = values[n_groups];
   op.scale_f = (float)values[n_groups];
   for (int t = 0; t < n_taps; ++t) op.tap_off[t] = taps[t];
+  return 0;
+}
+
+// Fill `td` from taps3[3*n_taps] = (dz, dy, dx) per tap; returns E_OP if a
+// tap lies beyond `radius`.
+static inline int make_tap_delta(TapDelta& td, const int* taps3, int n_taps,
+                                 int radius) {
+  if (n_taps < 1 || n_taps > STENCIL_MAX_TAPS) return E_OP;
+  for (int t = 0; t < n_taps; ++t) {
+    for (int a = 0; a < 3; ++a)
+      if (taps3[3 * t + a] < -radius || taps3[3 * t + a] > radius)
+        return E_OP;
+    td.dz[t] = (signed char)taps3[3 * t];
+    td.dy[t] = (signed char)taps3[3 * t + 1];
+    td.dx[t] = (signed char)taps3[3 * t + 2];
+  }
   return 0;
 }
 

@@ -46,6 +46,20 @@ def test_the_lattice_update_is_defined_only_in_the_shared_cell():
         assert definition.findall(path.read_text()) == [], path.name
 
 
+def test_the_async_copies_are_defined_only_in_their_header():
+    """K1 and K3 stream planes with the one copy of the cp.async helpers."""
+    header = (_build.CSRC / "async_copy.cuh").read_text()
+    definition = re.compile(
+        r"\bvoid\s+(copy_async|copy_row|cp_async_commit|cp_async_wait)\s*\(")
+    assert sorted(definition.findall(header)) == [
+        "copy_async", "copy_row", "cp_async_commit", "cp_async_wait"]
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        text = path.read_text()
+        assert definition.findall(text) == [], path.name
+        if path.name in ("mwd.cu", "fused.cu"):
+            assert '#include "async_copy.cuh"' in text
+
+
 @pytest.mark.parametrize("name", list(tst.SPECS))
 def test_op_tables_follow_group_order(name):
     spec = tst.SPECS[name]

@@ -243,3 +243,77 @@ def test_baseline_kernels_nonmultiple_grid_and_launch_counts(cuda):
         assert_bitwise(got, want)
     assert tsweep.LAUNCHES.count == before[0] + 5
     assert tfused.LAUNCHES.count == before[1] + 2
+
+
+def _fused_vs_plain(spec, state, coeffs, n_steps, t_block, **kw):
+    """K3 over n_steps (short last pass where t_block does not divide it)
+    against its plain version; returns the configuration of the first pass."""
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    cfg = tfused.kernel_config(spec, state[0], t_block, **kw)
+    got = tops.ghostzone(spec, state, coeffs, n_steps, t_block=t_block, **kw)
+    want = _plain_fused(spec, state, arrays, scalars, n_steps, t_block, **kw)
+    torch.cuda.synchronize()
+    assert_bitwise(got, want)
+    return cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_block", [1, 2, 4])
+@pytest.mark.parametrize("name", list(tst.SPECS) + ["aniso11"])
+def test_fused_kernel_t_blocks_and_ragged_x_tiles(cuda, name, t_block):
+    """The kernel's own x tile leaves a narrower last tile at nx = 204;
+    bz = by = 16 divide neither nz nor ny; 7 steps end in a short pass."""
+    spec = _spec(name)
+    state, coeffs = tst.make_problem(spec, (20, 40, 204), seed=9,
+                                     device=cuda)
+    cfg = _fused_vs_plain(spec, state, coeffs, 7, t_block)
+    assert 204 % cfg["bx"] and cfg["resident"] >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(tst.SPECS) + ["aniso11"])
+def test_fused_kernel_f64_and_odd_grid(cuda, name):
+    """f64 at t_block = 4 (at R = 4 no level-0 ring fits, so level 0 is
+    read in place) and a grid no tile divides."""
+    spec = _spec(name)
+    state, coeffs = tst.make_problem(spec, (24, 40, 36), dtype="f64",
+                                     seed=10, device=cuda)
+    cfg = _fused_vs_plain(spec, state, coeffs, 5, 4)
+    if spec.radius == 4:
+        assert cfg["layout"] == "cur-in-place"
+    state, coeffs = tst.make_problem(spec, ODD_GRID, seed=11, device=cuda)
+    _fused_vs_plain(spec, state, coeffs, 5, 3)
+    assert_bitwise(tops.ghostzone(spec, state, coeffs, 5, t_block=3),
+                   tops.naive(spec, state, coeffs, 5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["bf16", "fp16"])
+@pytest.mark.parametrize("name", list(tst.SPECS))
+def test_fused_kernel_native_reduced_precision(cuda, name, dt):
+    spec = tst.SPECS[name]
+    state, coeffs = tst.make_problem(spec, (24, 40, 72), dtype=dt, seed=12,
+                                     device=cuda)
+    _fused_vs_plain(spec, state, coeffs, 6, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,t_block,by,n_steps", [
+    ("f32", 6, 16, 7), ("f32", 4, 80, 5), ("f32", 8, 16, 8),
+    ("f64", 8, 16, 8)])
+@pytest.mark.parametrize("name", ["25pt-const", "25pt-var"])
+def test_fused_kernel_y_sub_tiles_and_split_passes(cuda, name, dt, t_block,
+                                                   by, n_steps):
+    """Where no layout holds a block of by rows the kernel splits it into y
+    tiles; where none holds the pass, it runs as launches of fewer steps."""
+    spec = tst.SPECS[name]
+    state, coeffs = tst.make_problem(spec, (24, 50, 40), dtype=dt, seed=13,
+                                     device=cuda)
+    elem = state[0].element_size()
+    before = tfused.LAUNCHES.count
+    cfg = _fused_vs_plain(spec, state, coeffs, n_steps, t_block, by=by)
+    assert cfg["ty"] < by
+    assert cfg["launches"] == tfused.launch_steps(spec, t_block, by, 40, elem)
+    assert tfused.LAUNCHES.count - before == sum(
+        len(tfused.launch_steps(spec, tb, by, 40, elem))
+        for tb in tfused.pass_lengths(n_steps, t_block))
