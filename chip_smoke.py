@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
+    python3 chip_smoke.py --sweep-k2 | --sweep-k3
 
 Run from a checkout of the repository on a machine with a CUDA card (an
 H100: the kernels build for sm_90a). Phases, each of which raises on
@@ -33,19 +34,25 @@ failure so the script exits non-zero:
 5. the baselines: K2 (the spatial sweep) and K3 (the ghost-zone pass)
    against their plain versions at the mid-size grid, at a grid that is
    not a multiple of bz/by and at a 200-wide one, for the four paper ops
-   and aniso11 (f32 and f64 bitwise, native bf16 and fp16: K3 bitwise, K2
-   within op.tolerance; n_steps=0, t_block 1 to 4, a t_block that does
-   not divide n_steps, x tiles that do not divide nx), and K3 at the
+   and aniso11 (bitwise in f32, f64, native bf16 and fp16; n_steps=0,
+   t_block 1 to 4, a t_block that does not divide n_steps, x tiles that
+   do not divide nx), K2 where its tiling has edges (a tile that divides
+   neither ny nor nx, nx = 29, a chunk that does not divide nz, bz = 1,
+   bz > nz, f64 at R = 4), and K3 at the
    25-point ops where its layout changes: t_block 6 (y sub-tiles), a block
    of 80 rows (y sub-tiles) and t_block 8 in f32 and f64 (a pass split
    into launches); then ops.spatial
    and ops.ghostzone at 512^3 x 8 steps with default parameters against
    ops.naive, K2 and K3 against their plain versions on the same inputs,
-   their times by CUDA events beside their bounds (K3 also beside its
-   window bound, stencil_fused.window_bytes), a K3 `config` line per op
-   (x tile, y tile, threads, planes a step, layout, launches per pass,
-   shared memory, resident CTAs, coefficient streams, ptxas registers and
-   spills), and F.conv3d as K2's library yardstick
+   their times by CUDA events beside their bounds (K2 also beside its tile
+   bound, stencil_sweep.tile_bytes; K3 beside its window bound,
+   stencil_fused.window_bytes), a `config` line per op for K2 (tile,
+   chunk, threads, ring planes, copy path, L2 prefetch, shared memory,
+   resident CTAs, instance, ptxas registers and spills) and for K3 (x
+   tile, y tile,
+   threads, planes a step, layout, launches per pass, shared memory,
+   resident CTAs, coefficient streams, ptxas registers and spills), and
+   F.conv3d in full f32 (TF32 off) as K2's library yardstick
    (7pt-const).
 
 Before the last line come one `baseline` JSON line per (op, method) and a
@@ -59,7 +66,10 @@ for the checkout at OTHER_CHECKOUT and for this one in turns (other, this,
 this, other), each in its own process that builds its own kernels. With
 --sweep-k3 it only times K3 per paper op at every tile plan that fits
 (`sweep_fused`), the measurement behind its choice of x tile, threads,
-layout and planes a step.
+layout and planes a step; with --sweep-k2 it only times K2 per paper op at
+the tile plans of `k2_plans` and `k2_variants` (`sweep_sweep`), the
+measurement behind its choice of tile, threads, chunk, loads ahead, L2
+prefetch and instance.
 """
 
 from __future__ import annotations
@@ -122,6 +132,20 @@ def same(a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
 
 
+def first_difference(got, want) -> str:
+    """The first cell at which two lists of levels differ, and both values."""
+    import torch
+    for level, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return f"level {level}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}"
+        diff = (a != b) & ~(torch.isnan(a) & torch.isnan(b))
+        if bool(diff.any()):
+            cell = tuple(int(i) for i in diff.nonzero()[0])
+            return (f"level {level} first differs at {cell}: kernel "
+                    f"{float(a[cell])!r}, plain {float(b[cell])!r}")
+    return "no differing cell"
+
+
 def bound(op, grid, n_steps, *, passes=1, outputs=2, batch=1, word=4):
     """Least time (ms) for the work: compulsory bytes vs f32 flops.
 
@@ -171,7 +195,8 @@ class Tally:
         self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
         if tol is None:
             check(bitwise, f"{what}: {kernel} kernel != plain version "
-                           f"(max err {err:.3g})")
+                           f"(max err {err:.3g}; "
+                           f"{first_difference(got, want)})")
         else:
             atol, rtol = tol
             for a, b in zip(got, want):
@@ -582,12 +607,12 @@ def phase_baselines_small(tally: Tally, dev) -> None:
             state, coeffs = st.make_problem(spec, grid, dtype=dt, seed=5,
                                             device=dev)
             arrays, scalars = ir.split_coeffs(spec, coeffs)
-            tol = None if dt in ("f32", "f64") else spec.tolerance(dt)
             what = f"{spec.name} {grid} {dt} n_steps={n}"
+            cfg_s = sw.kernel_config(spec, state[0], **kw_s)
             got_s = ops.spatial(spec, state, coeffs, n, **kw_s)
             want = plain_spatial(spec, state, arrays, scalars, n)
             torch.cuda.synchronize()
-            bit_s = tally.record("sweep", got_s, want, f"{what} {kw_s}", tol)
+            tally.record("sweep", got_s, want, f"{what} {kw_s} {cfg_s}")
             kw = {**GHOSTZONE_DEFAULTS, **kw_g}
             cfg = fu.kernel_config(spec, state[0], kw["t_block"], bz=kw["bz"],
                                    by=kw["by"])
@@ -600,9 +625,9 @@ def phase_baselines_small(tally: Tally, dev) -> None:
                 check(all(same(a, b) for a, b in zip(got_s, naive))
                       and all(same(a, b) for a, b in zip(got_g, naive)),
                       f"{what}: spatial/ghostzone != naive")
-            log(f"  {what}: K2 {kw_s} "
-                f"{'bitwise' if bit_s else 'within op.tolerance'}, K3 {kw_g}"
-                f" bitwise vs plain ({fused_plan_text(cfg)})")
+            log(f"  {what}: K2 {kw_s} bitwise vs plain "
+                f"({sweep_plan_text(cfg_s)}), K3 {kw_g} bitwise vs plain "
+                f"({fused_plan_text(cfg)})")
         # n_steps = 0: the identity, no launch
         before = (sw.LAUNCHES.count, fu.LAUNCHES.count)
         for fn in (ops.spatial, ops.ghostzone):
@@ -611,6 +636,37 @@ def phase_baselines_small(tally: Tally, dev) -> None:
                   f"{spec.name}: {fn.__name__} n_steps=0 is not the identity")
         check((sw.LAUNCHES.count, fu.LAUNCHES.count) == before,
               f"{spec.name}: n_steps=0 launched a kernel")
+    # K2 where its tiling has edges: ODD_GRID (no tile divides ny or nx; nx
+    # = 29 leaves rows unaligned), chunks that do not divide nz, bz = 1 and
+    # bz > nz, the 200-wide grid, f64 at R = 4
+    edges = set()
+    for spec in list(st.SPECS.values()) + [aniso11(ir)]:
+        for grid, dt, bz, n in ((ODD_GRID, "f32", 1, 2),
+                                (ODD_GRID, "bf16", 3, 3),
+                                (ODD_GRID, "f64", 64, 2),
+                                (WIDE_GRID, "fp16", 5, 2),
+                                (WIDE_GRID, "f64", 8, 2)):
+            state, coeffs = st.make_problem(spec, grid, dtype=dt, seed=10,
+                                            device=dev)
+            arrays, scalars = ir.split_coeffs(spec, coeffs)
+            cfg = sw.kernel_config(spec, state[0], bz=bz)
+            before = sw.LAUNCHES.count
+            got = ops.spatial(spec, state, coeffs, n, bz=bz)
+            want = plain_spatial(spec, state, arrays, scalars, n)
+            torch.cuda.synchronize()
+            what = f"{spec.name} {grid} {dt} bz={bz} n_steps={n}"
+            tally.record("sweep", got, want, f"{what} {cfg}")
+            check(sw.LAUNCHES.count - before == n and cfg["chunk"] % bz == 0,
+                  f"{what}: {sw.LAUNCHES.count - before} K2 launches, {cfg}")
+            edges |= {k for k, hit in (
+                ("ty divides no ny", grid[1] % cfg["ty"]),
+                ("tx divides no nx", grid[2] % cfg["tx"]),
+                ("unaligned rows", grid[2] * state[0].element_size() % 16),
+                ("chunk divides no nz", grid[0] % cfg["chunk"]),
+                ("bz = 1", bz == 1), ("bz > nz", bz > grid[0]),
+                ("f64 at R = 4", dt == "f64" and spec.radius == 4)) if hit}
+            log(f"  {what}: K2 bitwise vs plain ({sweep_plan_text(cfg)})")
+    check(len(edges) == 7, f"K2's tiling edges not all run: {edges}")
     # K3 where no layout holds a block of by rows (y sub-tiles) or a pass
     # in one launch (launches of fewer steps)
     for spec in (st.SPECS["25pt-const"], st.SPECS["25pt-var"]):
@@ -658,14 +714,22 @@ def library_conv3d(spec, state, scalars, dev) -> dict:
                 (1, 1, 2)):
         w[(0, 0) + idx] = c1
     x = state[0][None, None]
-    lib_out = F.conv3d(x, w)                               # warm-up
-    library_ms = cuda_ms(lambda: F.conv3d(x, w), TIMING_REPS)
+    prior = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False     # full f32, as K2 computes
+    try:
+        lib_out = F.conv3d(x, w)                           # warm-up
+        library_ms = cuda_ms(lambda: F.conv3d(x, w), TIMING_REPS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prior
+    log(f"library F.conv3d timed in full f32 (cudnn.allow_tf32 False, "
+        f"restored to {prior}): {library_ms:.3f} ms")
     k2 = sw.run_kernel(spec, state, None, scalars)         # warm-up
     step_ms = cuda_ms(lambda: sw.run_kernel(spec, state, None, scalars),
                       TIMING_REPS)
     err = max_err(lib_out[0, 0], k2[0][1:-1, 1:-1, 1:-1])
     return {"library_ms": library_ms, "k2_step_ms": step_ms,
-            "library_err_vs_k2": err}
+            "library_err_vs_k2": err,
+            "library_precision": "f32 (cudnn.allow_tf32 False)"}
 
 
 def fused_plan_text(cfg: dict) -> str:
@@ -673,6 +737,40 @@ def fused_plan_text(cfg: dict) -> str:
     return (f"bx {cfg['bx']}, ty {cfg['ty']}, {cfg['threads']} threads, "
             f"{cfg['planes']} planes a step, layout {cfg['layout']}, "
             f"launches of {cfg['launches']} steps")
+
+
+def sweep_plan_text(cfg: dict) -> str:
+    """K2's plan from stencil_sweep.kernel_config, in words."""
+    return (f"tile {cfg['ty']} x {cfg['tx']}, chunk {cfg['chunk']} planes, "
+            f"{cfg['threads']} threads, ring of {cfg['ring_planes']} planes "
+            f"by {cfg['copy']}, L2 prefetch {cfg['prefetch']} planes ahead, "
+            f"V={cfg['cells']} H={cfg['hoist']}")
+
+
+def sweep_config_line(spec, cur, ptxas: dict) -> dict:
+    """K2's launch configuration for ops.spatial's default bz on `cur`, its
+    ptxas report, and its tile bound (stencil_sweep.tile_bytes) over
+    MAIN_STEPS steps."""
+    from repro_torch.kernels import stencil_sweep as sw
+    cfg = sw.kernel_config(spec, cur)
+    ring = int(cfg["copy"] == "cp.async")
+    entry = next(v for k, v in ptxas.items()
+                 if f"sweep_kernelIfLb{ring}ELi{cfg['hoist']}E" in k)
+    plan = sw._plan(spec, cur, 8)
+    tile = sw.tile_bytes(spec, cur.shape, plan, cur.element_size())
+    n_arr = spec.n_coeff_arrays
+    streams = ("no coefficient stream" if n_arr == 0 else
+               f"all {n_arr} streams read at the cell")
+    log(f"config {spec.name} K2: {sweep_plan_text(cfg)}, {cfg['ahead']} "
+        f"planes loaded ahead, {cfg['smem_bytes']} bytes dynamic shared "
+        f"memory per CTA, {cfg['resident']} CTAs resident per SM, "
+        f"{cfg['ctas']} CTAs per step, coefficients: {streams}; ptxas "
+        f"{entry['registers']} registers, spills {entry['spill_stores']}/"
+        f"{entry['spill_loads']} bytes")
+    return {"config": cfg, "registers": entry["registers"],
+            "spill_stores": entry["spill_stores"],
+            "spill_loads": entry["spill_loads"],
+            "tile_bound_ms": tile * MAIN_STEPS / HBM_BPS * 1e3}
 
 
 def fused_config_line(spec, cur, ptxas: dict) -> dict:
@@ -767,6 +865,9 @@ def phase_baselines_main(tally: Tally, dev,
             if name == "7pt-const" and method == "spatial":
                 library = library_conv3d(spec, state, scalars, dev)
                 row.update(library)
+            if method == "spatial":
+                row.update(sweep_config_line(spec, state[0], ptxas))
+                row["tile_share"] = row["tile_bound_ms"] / kernel_ms
             if method == "ghostzone":
                 row.update(fused_config_line(spec, state[0], ptxas))
                 row["window_share"] = row["window_bound_ms"] / kernel_ms
@@ -872,6 +973,114 @@ def sweep_fused() -> None:
         torch.cuda.empty_cache()
 
 
+def k2_plans(spec, shape, elem):
+    """Stage one of `sweep_sweep` for one op: the kernel's own choice and
+    every (x tile, y tile, threads, planes loaded ahead) that fits at its
+    chunk and prefetch."""
+    from repro_torch.kernels import stencil_sweep as sw
+    own = sw.choose_tile(spec, shape, 8, elem)
+    plans = []
+    for tx, ty, threads, ahead in itertools.product(
+            sw.TX_CHOICES, (4, 8, 16, 32), (128, 256, 512, 1024), (1, 2)):
+        try:
+            plan = sw.tile_layout(spec, ty, tx, elem, threads=threads,
+                                  chunk=own.chunk, ahead=ahead,
+                                  prefetch=own.prefetch)
+        except ValueError:              # cells that do not cover the tile
+            continue
+        if plan.fits:
+            plans.append(plan)
+    return own, list(dict.fromkeys(plans))
+
+
+def k2_variants(spec, best, elem):
+    """Stage two of `sweep_sweep`: the fastest plan of stage one at every
+    chunk (whole multiples of ops.spatial's bz = 8), loads ahead and L2
+    prefetch distance, taps in place instead of the ring and, where its
+    instance hoists coefficient loads, the instance without hoisting."""
+    import dataclasses
+    from repro_torch.kernels import stencil_sweep as sw
+    out = []
+    for chunk, ahead, prefetch in itertools.product(
+            (16, 32, 64, 128, 256), (1, 2), (0, 2, 4)):
+        plan = sw.tile_layout(spec, best.ty, best.tx, elem,
+                              threads=best.threads, chunk=chunk, ahead=ahead,
+                              prefetch=prefetch)
+        if plan.fits:
+            out.append(plan)
+    try:
+        out.append(sw.tile_layout(spec, best.ty, best.tx, elem,
+                                  threads=best.threads, chunk=best.chunk,
+                                  copy="in-place", prefetch=best.prefetch))
+    except ValueError:                  # its four cells do not cover the tile
+        pass
+    h = best.tx // 4
+    if (best.hoist and best.tx % 128 == 0 and h <= best.threads
+            and best.threads % h == 0):
+        out.append(dataclasses.replace(best, hoist=0, cells=4))
+    return out
+
+
+def sweep_sweep() -> None:
+    """K2 at its tile plans, per paper op at 512^3 x 8 steps.
+
+    Times ops.spatial (default bz = 8) with the kernel's own choice
+    replaced by each plan of `k2_plans`, then by each of `k2_variants` of
+    the fastest, each held bitwise against the kernel's own choice; one
+    `k2_plan` JSON line per plan, with its share of the compulsory bound,
+    and one `k2_best` line per op. The measurement behind
+    `stencil_sweep.choose_tile`.
+    """
+    import torch
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_sweep as sw
+    dev = torch.device("cuda", 0)
+    own = sw.choose_tile
+    for name, spec in st.SPECS.items():
+        state, coeffs = st.make_problem(spec, MAIN_GRID, seed=0, device=dev)
+        want = ops.spatial(spec, state, coeffs, MAIN_STEPS)
+        chosen, plans = k2_plans(spec, MAIN_GRID, 4)
+        b_ms, _ = bound(spec, MAIN_GRID, MAIN_STEPS, passes=MAIN_STEPS,
+                        outputs=1)
+        timed_plans = {}
+
+        def time_plan(plan):
+            sw.choose_tile = lambda *a, plan=plan: plan
+            try:
+                got = ops.spatial(spec, state, coeffs, MAIN_STEPS)
+                check(all(same(a, b) for a, b in zip(got, want)),
+                      f"{name} {plan}: K2 != its own choice")
+                del got
+                ms = cuda_ms(lambda: ops.spatial(spec, state, coeffs,
+                                                 MAIN_STEPS), 3)
+                cfg = sw.kernel_config(spec, state[0])
+            finally:
+                sw.choose_tile = own
+            timed_plans[plan] = ms
+            log("k2_plan " + json.dumps({
+                "op": name, "ty": plan.ty, "tx": plan.tx,
+                "threads": plan.threads, "chunk": plan.chunk,
+                "ahead": plan.ahead, "copy": plan.copy,
+                "prefetch": plan.prefetch,
+                "hoist": plan.hoist,
+                "cells": plan.cells, "smem_bytes": plan.smem_bytes,
+                "resident": cfg["resident"], "ms": ms,
+                "share": b_ms / ms, "chosen": plan == chosen}))
+
+        for plan in dict.fromkeys([chosen] + plans):
+            time_plan(plan)
+        best = min(timed_plans, key=timed_plans.get)
+        for plan in k2_variants(spec, best, 4):
+            if plan not in timed_plans:
+                time_plan(plan)
+        best = min(timed_plans, key=timed_plans.get)
+        log(f"k2_best {name}: {best} {timed_plans[best]:.3f} ms, chosen "
+            f"{timed_plans[chosen]:.3f} ms")
+        del state, coeffs, want
+        torch.cuda.empty_cache()
+
+
 def compare(other: Path) -> None:
     """K1, K2 and K3 of the checkout at `other` and of this one, in turns
     on one card.
@@ -909,9 +1118,9 @@ def main() -> int:
         root = Path(args[1]).resolve()
     elif args[:1] == ["--compare"] and len(args) == 2:
         pass
-    elif args and args != ["--sweep-k3"]:
-        print("usage: chip_smoke.py [--compare OTHER_CHECKOUT | --sweep-k3]",
-              file=sys.stderr)
+    elif args and args not in (["--sweep-k3"], ["--sweep-k2"]):
+        print("usage: chip_smoke.py [--compare OTHER_CHECKOUT | --sweep-k3 "
+              "| --sweep-k2]", file=sys.stderr)
         return 2
     if not (root / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -932,6 +1141,9 @@ def main() -> int:
         return 0
     if args == ["--sweep-k3"]:
         sweep_fused()
+        return 0
+    if args == ["--sweep-k2"]:
+        sweep_sweep()
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -50,6 +50,14 @@ def op_tables(op: ir.StencilOp, scalars, sz: int, sy: int):
             np.asarray(values, np.float64))
 
 
+def hoist_groups(op: ir.StencilOp) -> int:
+    """Array-coefficient groups whose loads a kernel instance issues
+    together (update_cell's H): 0, 8 or 16, the fewest that cover the op's.
+    """
+    n = sum(c.kind == "array" for c, _ in op.groups)
+    return 0 if n == 0 else 8 if n <= 8 else 16
+
+
 def ptr(a: np.ndarray) -> ctypes.c_void_p:
     """A host numpy array as a launcher argument."""
     return ctypes.c_void_p(a.ctypes.data)

@@ -148,9 +148,10 @@ template <> __device__ inline double const_value<double>(float,
 }
 
 // The left-to-right sum of taps [t0, t1) at each of the n cells into s.
-// With several cells (K1) two taps' loads are issued before they are
-// added; with one (K2, K3) taps go one at a time, since pairing them slowed
-// K2 by 12-19 % at the 7-point ops on an H100 (PERF.md).
+// With several cells (K1, K3) two taps' loads are issued before they are
+// added, four with four cells or more (K2); with one taps go one at a
+// time, since pairing them slowed K2 by 12-19 % at the 7-point ops on an
+// H100 (PERF.md). The additions keep their order either way.
 template <typename S, typename A, int V, typename Off>
 __device__ __forceinline__ void tap_sum(const S* src, const Off* taps, int t0,
                                         int t1, int step, int n,
@@ -161,6 +162,29 @@ __device__ __forceinline__ void tap_sum(const S* src, const Off* taps, int t0,
   for (int v = 0; v < V; ++v)
     if (v < n) s[v] = M(Num<S>::load(src[o0 + v * step]));
   int t = t0 + 1;
+  if constexpr (V >= 4) {
+    for (; t + 3 < t1; t += 4) {    // four taps' loads in flight at once
+      const Off oa = taps[t], ob = taps[t + 1], oc = taps[t + 2],
+                od = taps[t + 3];
+      S va[V], vb[V], vc[V], vd[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (v < n) {
+          va[v] = src[oa + v * step];
+          vb[v] = src[ob + v * step];
+          vc[v] = src[oc + v * step];
+          vd[v] = src[od + v * step];
+        }
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (v < n) {
+          s[v] = Num<A>::round(s[v] + M(Num<S>::load(va[v])));
+          s[v] = Num<A>::round(s[v] + M(Num<S>::load(vb[v])));
+          s[v] = Num<A>::round(s[v] + M(Num<S>::load(vc[v])));
+          s[v] = Num<A>::round(s[v] + M(Num<S>::load(vd[v])));
+        }
+    }
+  }
   if constexpr (V > 1) {
     for (; t + 1 < t1; t += 2) {    // two taps' loads in flight at once
       const Off oa = taps[t], ob = taps[t + 1];

@@ -41,7 +41,8 @@ from repro_torch.core import stencils as st
 from repro_torch.kernels import _build
 from repro_torch.kernels._host import (LaunchCounter, TYPE_CODES,
                                        check_inputs, check_kernel_inputs,
-                                       edge_pad, op_tables, ptr)
+                                       edge_pad, hoist_groups, op_tables,
+                                       ptr)
 
 LAUNCHES = LaunchCounter()
 
@@ -162,8 +163,7 @@ def tile_layout(spec: st.StencilSpec, t_block: int, ty: int, bx: int,
         rings[s] = Ring(mx, my, w, h, d, off, tab)
         off += _up(d * h * w * elem, 16)
         tab += d * n_taps
-    n = sum(c.kind == "array" for c, _ in spec.groups)
-    hoist = 0 if n == 0 else 8 if n <= 8 else 16
+    hoist = hoist_groups(spec)
     if planes > 1 and (layout != "cur-in-place" or hoist):
         raise ValueError("the fused kernel steps two planes at a time only "
                          "with level 0 in place and no array-coefficient "

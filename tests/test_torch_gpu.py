@@ -6,6 +6,8 @@ Run on a CUDA machine with ``python -m pytest -q -m gpu tests/test_torch_gpu.py`
 This file imports only the port, so it runs where JAX is not installed.
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -317,3 +319,71 @@ def test_fused_kernel_y_sub_tiles_and_split_passes(cuda, name, dt, t_block,
     assert tfused.LAUNCHES.count - before == sum(
         len(tfused.launch_steps(spec, tb, by, 40, elem))
         for tb in tfused.pass_lengths(n_steps, t_block))
+
+
+def _sweep_vs_plain(spec, state, coeffs, n_steps, bz):
+    """K2 over n_steps (ops.spatial) against its plain version, bitwise;
+    returns the launch configuration and the launches counted."""
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    cfg = tsweep.kernel_config(spec, state[0], bz=bz)
+    before = tsweep.LAUNCHES.count
+    got = tops.spatial(spec, state, coeffs, n_steps, bz=bz)
+    launched = tsweep.LAUNCHES.count - before
+    want = state
+    for _ in range(n_steps):
+        want = tsweep.run_plain(spec, want, arrays, scalars)
+    torch.cuda.synchronize()
+    assert_bitwise(got, want)
+    return cfg, launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "f64", "bf16", "fp16"])
+@pytest.mark.parametrize("name", list(tst.SPECS) + ["aniso11"])
+def test_sweep_kernel_tiling_edges(cuda, name, dt):
+    """K2 where its tiling has edges, in every stream type: ODD_GRID (no
+    tile divides ny or nx; nx = 29 leaves rows unaligned) at bz = 1, 3 (a
+    chunk that does not divide nz) and 64 (> nz), and WIDE_GRID."""
+    spec = _spec(name)
+    for grid, bz, n_steps in ((ODD_GRID, 1, 2), (ODD_GRID, 3, 3),
+                              (ODD_GRID, 64, 2), (WIDE_GRID, 8, 3)):
+        state, coeffs = tst.make_problem(spec, grid, dtype=dt, seed=14,
+                                         device=cuda)
+        cfg, launched = _sweep_vs_plain(spec, state, coeffs, n_steps, bz)
+        assert launched == n_steps and cfg["chunk"] % bz == 0
+        assert cfg["resident"] >= 1 and cfg["copy"] != "in-place"
+        if grid == ODD_GRID:
+            assert grid[1] % cfg["ty"] and grid[2] % cfg["tx"]
+            assert cfg["copy"] == "cp.async"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("copy", tsweep.COPIES)
+@pytest.mark.parametrize("name", list(tst.SPECS) + ["aniso11"])
+def test_sweep_kernel_copy_paths(cuda, name, copy, monkeypatch):
+    """The ring and the in-place path, with and without the L2 prefetch of
+    the streams, at a tile of 128 columns by the most rows up to 8 that fit
+    and a chunk of 5 planes, on a 200-wide grid; f32 and f64."""
+    spec = _spec(name)
+    for dt, prefetch in itertools.product(("f32", "f64"), (0, 2)):
+        state, coeffs = tst.make_problem(spec, (21, 26, 200), dtype=dt,
+                                         seed=15, device=cuda)
+        plan = next(p for ty in (8, 4, 2, 1) for p in [tsweep.tile_layout(
+            spec, ty, 128, state[0].element_size(), threads=128, chunk=5,
+            copy=copy, prefetch=prefetch)] if p.fits)
+        monkeypatch.setattr(tsweep, "choose_tile", lambda *a, p=plan: p)
+        cfg, _ = _sweep_vs_plain(spec, state, coeffs, 2, 5)
+        assert cfg["copy"] == copy and cfg["chunk"] == 5
+        assert cfg["prefetch"] == plan.prefetch
+
+
+@pytest.mark.gpu
+def test_sweep_kernel_large_radius_reads_in_place(cuda):
+    """A radius no ring fits takes the in-place instance."""
+    taps = (tir.Tap(0, 0, 0, tir.const(0)), tir.Tap(40, 0, 0, tir.const(1)),
+            tir.Tap(-40, 0, 0, tir.const(1)), tir.Tap(0, 0, 40, tir.const(1)))
+    spec = tir.StencilOp("far", taps, default_scalars=(0.5, 0.25))
+    state, coeffs = tst.make_problem(spec, (82, 81, 84), dtype="f64",
+                                     seed=16, device=cuda)
+    cfg, _ = _sweep_vs_plain(spec, state, coeffs, 2, 8)
+    assert cfg["copy"] == "in-place"
