@@ -10,7 +10,10 @@ H100: the kernels build for sm_90a). Phases, each of which raises on
 failure so the script exits non-zero:
 
 1. setup: the card's name and power limit (nvidia-smi), then every CUDA
-   source under src/repro_torch/kernels/csrc/ built with nvcc;
+   source under src/repro_torch/kernels/csrc/ built with nvcc; the device
+   spec (src/repro_torch/specs/h100-sxm.json) against the card: its SM
+   count, L2 and shared-memory sizes as the card reports them, its launch
+   and cluster-barrier costs measured beside the spec's (a `spec` line);
 2. K1 (the MWD kernel) against its plain PyTorch version on the card at a
    mid-size grid: the four paper ops and the custom mixed op aniso11, fused
    and per-row, a B=2 batch against a per-item loop, a grid that is not a
@@ -18,17 +21,32 @@ failure so the script exits non-zero:
    accumulation and bf16 with native accumulation; then an x width at
    which the kernel itself splits each tile over several CTAs (fewer than
    the largest cluster; coefficients staged at one op and read in place at
-   the others), fused, per-row, batched and f64;
+   the others), fused, per-row, batched and f64; the machine model's fit
+   twin (models.mwd_smem_plan) against the kernel's own launch choice on
+   every width up to the first that fits no more, f32 and f64, 40, 200 and
+   512 columns, each refusal predicted; and F1: ops.mwd(aniso11,
+   plan="auto"), which the port once refused, against ops.naive with K1
+   bitwise at the resolved plan;
+2b. the measured tuner: tune_one per paper op at 512^3 x 8 steps into the
+   run's own plan registry (a temporary file), one `tune_plan` line per
+   plan scored (the model's prediction beside the measured whole ops.mwd
+   call), the winner no slower than the baseline MWDPlan() it scored
+   first, the plan the model alone picks; then a second tune_one that
+   must measure nothing;
 3. the main path at the production grid: ops.mwd(plan="auto") at 512^3 for
-   the four paper ops, 8 steps, against ops.naive on the card, K1 against
-   its plain version on the same inputs, K1's time by CUDA events beside
-   its compulsory bound and the schedule's own traffic bound, and a
+   the four paper ops, 8 steps, resolving the tune phase's measured entry,
+   against ops.naive on the card, K1 against its plain version on the
+   same inputs, K1's time by CUDA events beside its compulsory bound and
+   the schedule's own traffic bound (models.mwd_schedule_bytes), the whole
+   ops.mwd call at the tuned plan and at PR 15's dw8.nf2.fused in turns,
+   the model's prediction for each, and a
    `config` line per op: cluster size, slab width, threads, dynamic
    shared memory per CTA, which coefficient streams are staged, ptxas
    registers and spills, and the cluster barriers per CTA and row times
    one barrier's cost measured alone;
 4. serving: serve_stencil("7pt-var", 512^3, 8 steps, 4 requests,
-   max_batch=2), every response bitwise equal to its own sequential
+   max_batch=2) on the same registry (its batch-2 key, not tuned, resolves
+   through the model), every response bitwise equal to its own sequential
    ops.mwd, with K1's launch count read around the serving run, and K1
    against its plain version at the serving batch's shape (B=2, 512^3);
 5. the baselines: K2 (the spatial sweep) and K3 (the ghost-zone pass)
@@ -45,8 +63,8 @@ failure so the script exits non-zero:
    and ops.ghostzone at 512^3 x 8 steps with default parameters against
    ops.naive, K2 and K3 against their plain versions on the same inputs,
    their times by CUDA events beside their bounds (K2 also beside its tile
-   bound, stencil_sweep.tile_bytes; K3 beside its window bound,
-   stencil_fused.window_bytes), a `config` line per op for K2 (tile,
+   bound, models.sweep_tile_bytes; K3 beside its window bound,
+   models.fused_window_bytes), a `config` line per op for K2 (tile,
    chunk, threads, ring planes, copy path, L2 prefetch, shared memory,
    resident CTAs, instance, ptxas registers and spills) and for K3 (x
    tile, y tile,
@@ -61,9 +79,12 @@ JSON object with one entry per kernel; the last line is
 without the repository beside it, the script exits non-zero and prints no
 result. It imports nothing of JAX.
 
-With --compare it only times K1, K2 and K3 per paper op at 512^3 x 8,
-for the checkout at OTHER_CHECKOUT and for this one in turns (other, this,
-this, other), each in its own process that builds its own kernels. With
+Bounds take the HBM rate and f32 peak of the device spec.
+
+With --compare it only times K1 (at dw8.nf2), K2 and K3 per paper op at
+512^3 x 8, for the checkout at OTHER_CHECKOUT and for this one in turns
+(other, this, this, other), each in its own process that builds its own
+kernels. With
 --sweep-k3 it only times K3 per paper op at every tile plan that fits
 (`sweep_fused`), the measurement behind its choice of x tile, threads,
 layout and planes a step; with --sweep-k2 it only times K2 per paper op at
@@ -77,10 +98,13 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,9 +118,6 @@ MAIN_STEPS = 8
 SERVE_OP = "7pt-var"
 TIMING_REPS = 5
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 non-tensor FLOP/s
-HBM_BPS = 3.35e12
-F32_FLOPS = 67e12
 
 
 class Failed(RuntimeError):
@@ -146,17 +167,24 @@ def first_difference(got, want) -> str:
     return "no differing cell"
 
 
+def chip():
+    """The device spec the port prices against (src/repro_torch/specs/)."""
+    from repro_torch.core import specs
+    return specs.current_spec()
+
+
 def bound(op, grid, n_steps, *, passes=1, outputs=2, batch=1, word=4):
     """Least time (ms) for the work: compulsory bytes vs f32 flops.
 
     Each of `passes` launches reads every input stream once and writes
     `outputs` grids: K1 is one pass writing both levels, K2 one pass per
-    step writing one grid, K3 one pass per t_block steps writing two.
+    step writing one grid, K3 one pass per t_block steps writing two. The
+    HBM rate and f32 peak are the device spec's data-sheet figures.
     """
     cells = batch * grid[0] * grid[1] * grid[2]
     inputs = 1 + (op.time_order == 2) + op.n_coeff_arrays
-    t_bytes = passes * (inputs + outputs) * cells * word / HBM_BPS
-    t_ops = op.flops_per_lup * cells * n_steps / F32_FLOPS
+    t_bytes = passes * (inputs + outputs) * cells * word / chip().hbm_bw
+    t_ops = op.flops_per_lup * cells * n_steps / chip().peak_flops_f32
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -374,19 +402,26 @@ def phase_kernel_checks(tally: Tally, dev) -> None:
     log(f"  non-multiple grid {ODD_GRID}: bitwise vs plain and naive")
     check(set(staged.values()) == {0, 1},
           f"{WIDE_GRID} did not run both coefficient paths: {staged}")
+    check_fit_twin(dev)
+    check_f1(tally, dev)
     log(f"phase 2 kernel checks: {time.perf_counter() - t0:.1f} s, "
         f"max |kernel - plain| {tally.max_abs_err['mwd']:.3g}")
 
 
-def barrier_us(cluster: int, n_clusters: int, threads: int, dev) -> float:
-    """Microseconds per cluster barrier, timed with nothing between them."""
+def probe_lib(dev):
+    """K1's library with its cluster probe bound, and the current stream."""
     import ctypes
     import torch
     from repro_torch.kernels import stencil_mwd as sm
     lib = sm._mwd_lib()
     lib.mwd_cluster_probe.restype = ctypes.c_int
     lib.mwd_cluster_probe.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lib, torch.cuda.current_stream(dev).cuda_stream
+
+
+def barrier_us(cluster: int, n_clusters: int, threads: int, dev) -> float:
+    """Microseconds per cluster barrier, timed with nothing between them."""
+    lib, stream = probe_lib(dev)
     ms = []
     for iters in (200, 2200):
         def probe(iters=iters):
@@ -398,17 +433,231 @@ def barrier_us(cluster: int, n_clusters: int, threads: int, dev) -> float:
     return (ms[1] - ms[0]) * 1e3 / 2000
 
 
-def schedule_bound_ms(spec, comp, d_w) -> float:
-    """Bytes bound of the schedule's own traffic (one pass per row)."""
-    cells = MAIN_GRID[0] * MAIN_GRID[1] * MAIN_GRID[2]
-    r = spec.radius
-    grids = comp.n_rows * (2 * (d_w + 2 * r) / d_w + spec.n_coeff_arrays + 2)
-    return grids * cells * 4 / HBM_BPS * 1e3
+def launch_us(dev, cluster: int = 8, threads: int = 256,
+              n: int = 2000) -> float:
+    """Microseconds per kernel launch: `n` launches of an empty kernel in
+    clusters of `cluster` CTAs (K1's shape at 512 columns), issued back to
+    back through the ctypes binding onto one stream, by CUDA events."""
+    lib, stream = probe_lib(dev)
+
+    def burst():
+        for _ in range(n):
+            check(lib.mwd_cluster_probe(cluster, 1, threads, 0, dev.index,
+                                        stream) == 0,
+                  "launch probe failed to launch")
+
+    burst()
+    return cuda_ms(burst, TIMING_REPS) * 1e3 / n
+
+
+def k1_ms(spec, state, arrays, scalars, kw) -> float:
+    """K1 alone on one prepared job (median of TIMING_REPS, grids restored
+    untimed between runs)."""
+    from repro_torch.kernels import stencil_mwd as sm
+    job = sm.prepare(spec, state, arrays, scalars, MAIN_STEPS, **kw)
+    saved = [b.clone() for b in job.bufs]
+
+    def restore():
+        for b, s in zip(job.bufs, saved):
+            b.copy_(s)
+
+    sm.run_kernel(job)                      # warm-up
+    return cuda_ms(lambda: sm.run_kernel(job), TIMING_REPS, restore)
+
+
+def phase_spec(dev) -> dict:
+    """The device spec against the card: what the card reports of its SMs,
+    L2 and shared memory must equal the spec's figures; its launch and
+    cluster-barrier costs are measured here beside the spec's."""
+    import torch
+    spec = chip()
+    props = torch.cuda.get_device_properties(dev)
+    read = {"n_sm": props.multi_processor_count,
+            "l2_bytes": getattr(props, "L2_cache_size", None),
+            "smem_block_bytes": getattr(props, "shared_memory_per_block_optin",
+                                        None),
+            "smem_sm_bytes": getattr(props, "shared_memory_per_multiprocessor",
+                                     None)}
+    for field, value in read.items():
+        check(value is None or value == getattr(spec, field),
+              f"the card reports {field} = {value}, the spec "
+              f"{spec.name} says {getattr(spec, field)}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60, check=True)
+    clock_mhz = float(smi.stdout.strip().splitlines()[0])
+    out = {"spec": spec.name, "card": read, "clocks_max_sm_mhz": clock_mhz,
+           # 32 banks of 4 bytes per clock on every SM
+           "smem_bw_at_max_clock": read["n_sm"] * 128 * clock_mhz * 1e6,
+           "launch_us": launch_us(dev), "launch_us_spec": spec.launch_s * 1e6,
+           "cluster_barrier_us": barrier_us(8, 16, 256, dev),
+           "cluster_barrier_us_spec": spec.cluster_barrier_s * 1e6,
+           "smem_bw_spec": spec.smem_bw}
+    log("spec " + json.dumps(out))
+    return out
+
+
+def check_fit_twin(dev) -> dict:
+    """models.mwd_smem_plan, the Python twin of K1's launch choice, against
+    the kernel's own (stencil_mwd.kernel_config): the four paper ops and
+    aniso11, f32 and f64, 40, 200 and 512 columns, every d_w from 2R up to
+    the first width at which no n_f in {1, 2, 4} fits. Where the twin says
+    no fit, the kernel must refuse with E_SMEM (-5); where it fits, cluster,
+    slab, staging, threads, shared memory and ring depths must be equal.
+    Where the twin counts no CTA per SM (the rings fit the opt-in limit but
+    not beside the block's static shared memory), the kernel either takes
+    the same plan or refuses (E_CLUSTER, or the runtime's invalid
+    argument); models.smem_fits excludes these plans."""
+    from repro_torch.core import ir, models
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import stencil_mwd as sm
+    t0 = time.perf_counter()
+    counts = {"equal": 0, "e_smem": 0, "per_sm_0_refused": 0,
+              "per_sm_0_equal": 0}
+    refusals = set()
+    keys = ("cluster", "slab", "stage", "threads", "smem_bytes", "depth",
+            "cdepth")
+    for spec in list(st.SPECS.values()) + [aniso11(ir)]:
+        r = spec.radius
+        for dt, word in (("f32", 4), ("f64", 8)):
+            for nx in (40, 200, 512):
+                grid = (2 * r + 4, 2 * r + 4, nx)
+                state, coeffs = st.make_problem(spec, grid, dtype=dt, seed=0,
+                                                device=dev)
+                arrays, scalars = ir.split_coeffs(spec, coeffs)
+                d_w = 2 * r
+                while True:
+                    twins = []
+                    for n_f in (1, 2, 4):
+                        if d_w % n_f:
+                            continue
+                        twin = models.mwd_smem_plan(spec, d_w, n_f, nx, word)
+                        twins.append(twin)
+                        job = sm.prepare(spec, state, arrays, scalars, 2,
+                                         d_w=d_w, n_f=n_f, fused=True)
+                        what = f"{spec.name} {dt} nx={nx} d_w={d_w} n_f={n_f}"
+                        try:
+                            cfg, err = sm.kernel_config(job), ""
+                        except RuntimeError as e:
+                            cfg, err = None, str(e)
+                        if twin is None:
+                            check("(-5)" in err, f"{what}: the twin says no "
+                                                 f"fit, the kernel {cfg or err}")
+                            counts["e_smem"] += 1
+                        elif cfg is None:
+                            check(twin.per_sm == 0,
+                                  f"{what}: twin {twin}, kernel {err}")
+                            counts["per_sm_0_refused"] += 1
+                            refusals.add(err)
+                        else:
+                            got = {k: cfg[k] for k in keys}
+                            want = {k: getattr(twin, k) for k in keys}
+                            check(got == want, f"{what}: kernel {got} != "
+                                               f"twin {want}")
+                            counts["per_sm_0_equal" if twin.per_sm == 0
+                                   else "equal"] += 1
+                    if all(t is None for t in twins):
+                        break
+                    d_w += 2 * r
+    log(f"  fit twin vs kernel_config: {json.dumps(counts)}, refusals "
+        f"where the twin counts no CTA per SM: {sorted(refusals)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
+def check_f1(tally: Tally, dev) -> dict:
+    """F1 on the card: ops.mwd(aniso11, plan="auto") runs (R = 3, which the
+    old fixed dw8.nf2 refused), within op.tolerance of ops.naive, and K1 is
+    bitwise against its plain version at the resolved plan."""
+    from repro_torch.core import ir, registry
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import ops
+    spec = aniso11(ir)
+    state, coeffs = st.make_problem(spec, MID_GRID, seed=0, device=dev)
+    plan, source = registry.resolve_plan(spec, MID_GRID, word_bytes=4)
+    out = ops.mwd(spec, state, coeffs, MAIN_STEPS, plan="auto")
+    naive = ops.naive(spec, state, coeffs, MAIN_STEPS)
+    err = max(max_err(a, b) for a, b in zip(out, naive))
+    atol, rtol = spec.tolerance("f32")
+    check(err <= atol + rtol * max(float(naive[0].abs().max()), 1.0),
+          f"aniso11 plan='auto' vs naive err {err:.3g}")
+    arrays, scalars = ir.split_coeffs(spec, coeffs)
+    tally.kernel_vs_plain(spec, state, arrays, scalars, MAIN_STEPS,
+                          d_w=plan.d_w, n_f=plan.n_f, fused=plan.fused)
+    f1 = {"op": spec.name, "grid": list(MID_GRID), "plan":
+          f"dw{plan.d_w}.nf{plan.n_f}.{'fused' if plan.fused else 'row'}",
+          "plan_source": source, "err_vs_naive": err}
+    log("  F1 " + json.dumps(f1) + ": K1 bitwise vs plain")
+    return f1
+
+
+def phase_tune(dev) -> dict:
+    """The measured tuner at the main path's size, into the run's registry.
+
+    tune_one per paper op at 512^3 x 8 steps, f32, at most 12 plans, 3
+    timed calls each: one `tune_plan` line per plan it scored (the model's
+    predicted K1 time, the measured whole ops.mwd call), the winner, and
+    the plan the model alone resolves. The baseline MWDPlan() is scored
+    first and the winner must be no slower. A second tune_one on the same
+    registry must measure nothing.
+    """
+    import torch
+    from repro_torch.core import autotune, models, registry
+    from repro_torch.core import stencils as st
+    from repro_torch.core.mwd import MWDPlan
+    from repro_torch.launch import tune
+    t0 = time.perf_counter()
+    reg = registry.default_registry()
+    lups = MAIN_GRID[0] * MAIN_GRID[1] * MAIN_GRID[2] * MAIN_STEPS
+    out = {}
+    for name, spec in st.SPECS.items():
+        rep = tune.tune_one(spec, MAIN_GRID, reg, max_evals=12, reps=3,
+                            n_steps=MAIN_STEPS, device=dev)
+        check(rep["source"] == "measured" and rep["measurements"] > 0,
+              f"{name}: tune_one measured nothing: {rep}")
+        first, first_score = rep["evaluated"][0]
+        check(first == MWDPlan() and math.isfinite(first_score)
+              and rep["score"] >= first_score,
+              f"{name}: the winner {rep['plan']} scores below the baseline "
+              f"{first} ({rep['score']} < {first_score})")
+        for plan, score in rep["evaluated"]:
+            fits = (autotune._plan_valid(spec, plan) and models.smem_fits(
+                spec, plan.d_w, plan.n_f, MAIN_GRID[2]))
+            pred = (models.k1_predict(spec, MAIN_GRID, plan.d_w, plan.n_f,
+                                      MAIN_STEPS, fused=plan.fused)
+                    if fits else None)
+            log("tune_plan " + json.dumps({
+                "op": name, "plan": tune.plan_name(plan),
+                "model_ms": pred.t_total * 1e3 if pred else None,
+                "model_terms_ms": {k: getattr(pred, f"t_{k}") * 1e3 for k in
+                                   ("bytes", "flops", "barrier", "launch")}
+                if pred else None,
+                "measured_ms": (lups / score / 1e6
+                                if math.isfinite(score) else None),
+                "winner": plan == rep["plan"]}))
+        alone = autotune.autotune(spec, MAIN_GRID, d_w_cap=MAIN_GRID[1],
+                                  n_steps=MAIN_STEPS).plan
+        out[name] = {"plan": tune.plan_name(rep["plan"]),
+                     "measured_ms": lups / rep["score"] / 1e6,
+                     "baseline_ms": lups / first_score / 1e6,
+                     "model_alone": tune.plan_name(alone),
+                     "measurements": rep["measurements"],
+                     "evals": rep["evals"], "seconds": rep["seconds"]}
+        log(f"tune {name}: " + json.dumps(out[name]))
+        torch.cuda.empty_cache()
+    for name, spec in st.SPECS.items():
+        again = tune.tune_one(spec, MAIN_GRID, reg, max_evals=12, reps=3,
+                              n_steps=MAIN_STEPS, device=dev)
+        check(again["source"] == "cached" and again["measurements"] == 0,
+              f"{name}: the second tune_one measured {again}")
+    log("  second tune_one: 0 measurements for every op")
+    log(f"phase 2b tune: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def phase_main_path(tally: Tally, dev, ptxas: dict) -> dict:
     import torch
-    from repro_torch.core import ir
+    from repro_torch.core import ir, models, registry
     from repro_torch.core import stencils as st
     from repro_torch.kernels import ops
     from repro_torch.kernels import stencil_mwd as sm
@@ -418,7 +667,11 @@ def phase_main_path(tally: Tally, dev, ptxas: dict) -> dict:
         t_gen = time.perf_counter()
         state, coeffs = st.make_problem(spec, MAIN_GRID, seed=0, device=dev)
         t_gen = time.perf_counter() - t_gen
-        plan = ops.resolve_plan(spec, state, "auto")
+        plan, source = registry.resolve_plan(spec, MAIN_GRID, word_bytes=4)
+        check(plan == ops.resolve_plan(spec, state, "auto")
+              and source == "registry:measured",
+              f"{name}: plan='auto' resolved {plan} from {source}, not the "
+              f"tune phase's measured entry")
         sm.LAUNCHES.count = 0
         out = ops.mwd(spec, state, coeffs, MAIN_STEPS, plan="auto")
         torch.cuda.synchronize()
@@ -479,18 +732,33 @@ def phase_main_path(tally: Tally, dev, ptxas: dict) -> dict:
             f"barriers per CTA and row {per_row}, waves {waves}, "
             f"{probe:.3f} us each alone: {barrier_ms:.2f} ms of "
             f"{kernel_ms:.2f}")
-        mwd_ms = cuda_ms(lambda: ops.mwd(spec, state, coeffs, MAIN_STEPS,
-                                         plan="auto"), 2)
-        naive_ms = cuda_ms(lambda: ops.naive(spec, state, coeffs,
-                                             MAIN_STEPS), 1)
         comp = job.comp
         del job, saved
+        # the whole call at the tuned plan and at PR 15's fixed plan, in turns
+        pr15 = dict(d_w=8, n_f=2, fused=True)
+        calls = {"tuned": [], "dw8.nf2": []}
+        for which in ("tuned", "dw8.nf2", "dw8.nf2", "tuned"):
+            kw_call = kw if which == "tuned" else pr15
+            calls[which].append(cuda_ms(lambda: ops.mwd(
+                spec, state, coeffs, MAIN_STEPS, **kw_call), 3))
+        mwd_ms = min(calls["tuned"])
+        pr15_mwd_ms = min(calls["dw8.nf2"])
+        pr15_kernel_ms = k1_ms(spec, state, arrays, scalars, pr15)
+        predicted = {
+            which: models.k1_predict(spec, MAIN_GRID, p["d_w"], p["n_f"],
+                                     MAIN_STEPS, fused=p["fused"]).t_total
+            * 1e3 for which, p in (("tuned", kw), ("dw8.nf2", pr15))}
+        naive_ms = cuda_ms(lambda: ops.naive(spec, state, coeffs,
+                                             MAIN_STEPS), 1)
         b_ms, b_by = bound(spec, MAIN_GRID, MAIN_STEPS)
-        sched_ms = schedule_bound_ms(spec, comp, plan.d_w)
+        sched_ms = (models.mwd_schedule_bytes(spec, MAIN_GRID, plan.d_w,
+                                              comp.n_rows)
+                    / chip().hbm_bw * 1e3)
         lups = MAIN_GRID[0] * MAIN_GRID[1] * MAIN_GRID[2] * MAIN_STEPS
         row = {"op": name, "grid": list(MAIN_GRID), "steps": MAIN_STEPS,
                "plan": f"dw{plan.d_w}.nf{plan.n_f}."
                        f"{'fused' if plan.fused else 'row'}",
+               "plan_source": source,
                "kernel_ms": kernel_ms, "glups": lups / kernel_ms / 1e6,
                "launches_per_call": launches, "bound_ms": b_ms,
                "bound_by": b_by, "roofline_share": b_ms / kernel_ms,
@@ -499,6 +767,12 @@ def phase_main_path(tally: Tally, dev, ptxas: dict) -> dict:
                "barrier_ms": barrier_ms, "config": cfg,
                "plain_ms": plain_ms, "ops_mwd_ms": mwd_ms,
                "host_ms": mwd_ms - kernel_ms,
+               "model_ms": predicted["tuned"],
+               "dw8nf2_kernel_ms": pr15_kernel_ms,
+               "dw8nf2_ops_mwd_ms": pr15_mwd_ms,
+               "dw8nf2_model_ms": predicted["dw8.nf2"],
+               "ops_mwd_ms_turns": calls,
+               "tuned_vs_dw8nf2": mwd_ms / pr15_mwd_ms,
                "naive_ms": naive_ms, "err_vs_naive": err,
                "bitwise_vs_naive": bitwise_naive, "gen_s": t_gen}
         rows[name] = row
@@ -543,6 +817,10 @@ def phase_serving(tally: Tally, dev) -> dict:
                           n_f=plan.n_f, fused=plan.fused)
     del bstate, barr
     summary = {"op": SERVE_OP, "grid": list(MAIN_GRID), "steps": MAIN_STEPS,
+               "plan": f"dw{plan.d_w}.nf{plan.n_f}."
+                       f"{'fused' if plan.fused else 'row'}",
+               "plan_source": sorted({rec["plan_source"]
+                                      for rec in rep["records"]}),
                "served": rep["served"], "batch_sizes": rep["batch_sizes"],
                "p50_ms": float(rep["p50_ms"]), "p99_ms": float(rep["p99_ms"]),
                "glups": rep["glups"], "wall_s": rep["wall_s"],
@@ -749,15 +1027,15 @@ def sweep_plan_text(cfg: dict) -> str:
 
 def sweep_config_line(spec, cur, ptxas: dict) -> dict:
     """K2's launch configuration for ops.spatial's default bz on `cur`, its
-    ptxas report, and its tile bound (stencil_sweep.tile_bytes) over
+    ptxas report, and its tile bound (models.sweep_tile_bytes) over
     MAIN_STEPS steps."""
+    from repro_torch.core import models
     from repro_torch.kernels import stencil_sweep as sw
     cfg = sw.kernel_config(spec, cur)
     ring = int(cfg["copy"] == "cp.async")
     entry = next(v for k, v in ptxas.items()
                  if f"sweep_kernelIfLb{ring}ELi{cfg['hoist']}E" in k)
-    plan = sw._plan(spec, cur, 8)
-    tile = sw.tile_bytes(spec, cur.shape, plan, cur.element_size())
+    tile = models.sweep_tile_bytes(spec, cur.shape, 8, cur.element_size())
     n_arr = spec.n_coeff_arrays
     streams = ("no coefficient stream" if n_arr == 0 else
                f"all {n_arr} streams read at the cell")
@@ -770,13 +1048,14 @@ def sweep_config_line(spec, cur, ptxas: dict) -> dict:
     return {"config": cfg, "registers": entry["registers"],
             "spill_stores": entry["spill_stores"],
             "spill_loads": entry["spill_loads"],
-            "tile_bound_ms": tile * MAIN_STEPS / HBM_BPS * 1e3}
+            "tile_bound_ms": tile * MAIN_STEPS / chip().hbm_bw * 1e3}
 
 
 def fused_config_line(spec, cur, ptxas: dict) -> dict:
     """K3's launch configuration for ops.ghostzone's defaults on `cur`, its
-    ptxas report, and its window bound (stencil_fused.window_bytes) summed
+    ptxas report, and its window bound (models.fused_window_bytes) summed
     over the passes of MAIN_STEPS."""
+    from repro_torch.core import models
     from repro_torch.kernels import stencil_fused as fu
     kw = {k: GHOSTZONE_DEFAULTS[k] for k in ("bz", "by")}
     cfg = fu.kernel_config(spec, cur, GHOSTZONE_DEFAULTS["t_block"], **kw)
@@ -786,8 +1065,8 @@ def fused_config_line(spec, cur, ptxas: dict) -> dict:
                     f"{cfg['planes']}E" in k)
     check(len(cfg["launches"]) == 1,
           f"{spec.name}: K3 splits a pass at the defaults: {cfg}")
-    window = sum(fu.window_bytes(spec, cur.shape, tb, kw["bz"], kw["by"],
-                                 cfg["bx"], cur.element_size(), ty=cfg["ty"])
+    window = sum(models.fused_window_bytes(spec, cur.shape, tb, kw["bz"],
+                                           kw["by"], cur.element_size())
                  for tb in fu.pass_lengths(MAIN_STEPS,
                                            GHOSTZONE_DEFAULTS["t_block"]))
     n_arr = spec.n_coeff_arrays
@@ -801,7 +1080,7 @@ def fused_config_line(spec, cur, ptxas: dict) -> dict:
         f"{entry['spill_loads']} bytes")
     return {"config": cfg, "registers": entry["registers"],
             "spill_stores": entry["spill_stores"],
-            "window_bound_ms": window / HBM_BPS * 1e3}
+            "window_bound_ms": window / chip().hbm_bw * 1e3}
 
 
 def phase_baselines_main(tally: Tally, dev,
@@ -883,8 +1162,9 @@ def phase_baselines_main(tally: Tally, dev,
 def time_kernels() -> None:
     """K1, K2 and K3 per paper op at 512^3 x 8, as one JSON line.
 
-    K1 on one prepared job (plan "auto"), K2 and K3 as ops.spatial and
-    ops.ghostzone with default parameters, as phases 3 and 5 time them.
+    K1 on one prepared job at dw8.nf2.fused (one plan for both checkouts),
+    K2 and K3 as ops.spatial and ops.ghostzone with default parameters, as
+    phase 5 times them.
     Uses only interfaces the port has had since K2 and K3 were ported, so
     it times an earlier checkout as well.
     """
@@ -892,25 +1172,13 @@ def time_kernels() -> None:
     from repro_torch.core import ir
     from repro_torch.core import stencils as st
     from repro_torch.kernels import ops
-    from repro_torch.kernels import stencil_mwd as sm
     dev = torch.device("cuda", 0)
     out = {"mwd": {}, "sweep": {}, "fused": {}}
     for name, spec in st.SPECS.items():
         state, coeffs = st.make_problem(spec, MAIN_GRID, seed=0, device=dev)
         arrays, scalars = ir.split_coeffs(spec, coeffs)
-        plan = ops.resolve_plan(spec, state, "auto")
-        job = sm.prepare(spec, state, arrays, scalars, MAIN_STEPS,
-                         d_w=plan.d_w, n_f=plan.n_f, fused=plan.fused)
-        saved = [b.clone() for b in job.bufs]
-
-        def restore():
-            for b, s in zip(job.bufs, saved):
-                b.copy_(s)
-
-        sm.run_kernel(job)                      # warm-up
-        out["mwd"][name] = cuda_ms(lambda: sm.run_kernel(job), TIMING_REPS,
-                                   restore)
-        del job, saved
+        out["mwd"][name] = k1_ms(spec, state, arrays, scalars,
+                                 dict(d_w=8, n_f=2, fused=True))
         for kernel, fn in (("sweep", ops.spatial), ("fused", ops.ghostzone)):
             fn(spec, state, coeffs, MAIN_STEPS)     # warm-up
             out[kernel][name] = cuda_ms(
@@ -1149,13 +1417,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
-    ptxas = phase_setup()
-    tally = Tally()
-    phase_kernel_checks(tally, dev)
-    rows = phase_main_path(tally, dev, ptxas)
-    served = phase_serving(tally, dev)
-    phase_baselines_small(tally, dev)
-    base, base_launches, library = phase_baselines_main(tally, dev, ptxas)
+    # the run's own plan registry: plan="auto" resolves from what the tune
+    # phase measures, never from a file left by another run
+    plans = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    os.environ["REPRO_TORCH_PLAN_REGISTRY"] = os.path.join(plans, "plans.json")
+    try:
+        ptxas = phase_setup()
+        phase_spec(dev)
+        tally = Tally()
+        phase_kernel_checks(tally, dev)
+        phase_tune(dev)
+        rows = phase_main_path(tally, dev, ptxas)
+        served = phase_serving(tally, dev)
+        phase_baselines_small(tally, dev)
+        base, base_launches, library = phase_baselines_main(tally, dev,
+                                                            ptxas)
+    finally:
+        shutil.rmtree(plans, ignore_errors=True)
     k = rows[SERVE_OP]
     kernels = [{
         "name": "mwd", "route": "cuda",

@@ -7,4 +7,9 @@
 * `mwd`       — `MWDPlan` and the span-update oracles of the MWD kernel
 * `scheduler` — serving queue policy (lanes, admission, windows)
 * `padding`   — exact padding ladder of the serving tier
+* `specs`     — declarative device specs (the H100's in ``specs/``)
+* `models`    — the paper's equations, K1's fit twin and time model
+* `traffic`   — HBM bytes of the port's kernels, from their schedules
+* `autotune`  — the paper's model-pruned search, measured or modeled
+* `registry`  — the port's persistent plan registry and plan translation
 """

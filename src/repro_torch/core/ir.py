@@ -182,6 +182,19 @@ class StencilOp:
         """N_D of Eqs. 4-5: read streams incl. the destination write-allocate."""
         return 2 + self.n_coeff_arrays
 
+    @property
+    def bytes_per_cell(self) -> int:
+        """Domain-sized arrays touched per cell (solution levels + coeffs)."""
+        return 2 + self.n_coeff_arrays
+
+    def spatial_code_balance(
+            self, word_bytes: int = precision.DEFAULT_WORD_BYTES) -> float:
+        """Optimal spatial-blocking code balance, bytes/LUP (paper Sec. 5.2).
+
+        ``word * (N_D + 1)``: all read streams plus the store.
+        """
+        return word_bytes * (self.n_streams + 1)
+
     def tolerance(self, dtype) -> tuple[float, float]:
         """Declared per-dtype error budget ``(atol, rtol)``.
 

@@ -7,11 +7,17 @@ order; both update each span in place with the two-buffer parity scheme
 oracles of the CUDA kernel in `repro_torch.kernels.stencil_mwd`. The
 z-wavefront is a locality device, not a semantic one, so these oracles
 update the full z extent per span.
+
+`k1_geometry` and `barrier_schedule` are the launch geometry of the CUDA
+kernel computed from shapes alone: the launcher, the machine model
+(`core.models`) and the chip check all read them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 from repro_torch.core import ir
 from repro_torch.core import stencils as st
@@ -116,3 +122,97 @@ def run_compiled(spec: st.StencilSpec, state, coeffs, n_steps: int,
 def run_naive(spec: st.StencilSpec, state, coeffs, n_steps: int):
     """Reference: n_steps sequential naive sweeps (re-export for symmetry)."""
     return st.run_naive(spec, state, coeffs, n_steps)
+
+
+def traffic_per_pass(spec: st.StencilSpec, plan: MWDPlan, grid_shape,
+                     word_bytes: int = 4) -> dict:
+    """Modeled HBM traffic of one diamond pass over the grid (Eq. 5 terms)."""
+    from repro_torch.core import models
+    nz, ny, nx = grid_shape
+    t_pass = plan.d_w // (2 * spec.radius)  # steps advanced per pass
+    lups = nz * ny * nx * t_pass
+    bc = models.code_balance(spec, plan.d_w, word_bytes)
+    return {"lups": lups, "bytes": bc * lups, "code_balance": bc,
+            "steps": t_pass}
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Geometry:
+    """Launch geometry of one K1 advance, from shapes alone.
+
+    `pads` are the pad offsets ``(pz, py, px)`` of the padded parity grids,
+    `bounds` the interior ``lo_z, hi_z, lo_y, hi_y, lo_x, hi_x`` in padded
+    coordinates, `n_j` the wavefront steps of ``n_f`` z rows per tile.
+    """
+
+    comp: tiling.CompiledSchedule
+    pads: tuple[int, int, int]
+    bounds: tuple[int, ...]
+    n_f: int
+    n_j: int
+    radius: int
+    fused: bool
+
+
+def k1_geometry(radius: int, grid_shape, d_w: int, n_f: int, n_steps: int,
+                *, fused: bool = True, interior=None,
+                y_domain=None) -> K1Geometry:
+    """The schedule tables, padding and interior of one K1 advance.
+
+    Raises ValueError unless ``2R | d_w`` and ``n_f | d_w`` and, when the
+    schedule has rows, the interior lies inside the grid. `interior` is
+    ``[lo_z, hi_z, lo_y, hi_y, lo_x, hi_x]`` in grid coordinates (default:
+    the R-deep Dirichlet frame); `y_domain` the tessellation's y extent
+    (default ``(R, ny - R)``).
+    """
+    r = radius
+    if d_w % (2 * r) or d_w % n_f:
+        raise ValueError(f"need 2R | d_w and n_f | d_w (d_w={d_w}, R={r}, "
+                         f"n_f={n_f})")
+    nz, ny, nx = grid_shape
+    y_lo, y_hi = y_domain if y_domain is not None else (r, ny - r)
+    comp = tiling.compile_schedule(
+        tiling.make_diamond_schedule(d_w, r, n_steps, y_lo, y_hi))
+    pz, py, px = r, 2 * d_w + r, r
+    if interior is None:
+        interior = (r, nz - r, r, ny - r, r, nx - r)
+    interior = tuple(int(v) for v in interior)
+    if comp.n_rows:
+        for ax, n in enumerate((nz, ny, nx)):
+            if not 0 <= interior[2 * ax] <= interior[2 * ax + 1] <= n:
+                raise ValueError(f"interior {interior} leaves the grid "
+                                 f"{(nz, ny, nx)}")
+    return K1Geometry(
+        comp=comp, pads=(pz, py, px),
+        bounds=tuple(v + p for v, p in zip(interior,
+                                           (pz, pz, py, py, px, px))),
+        n_f=n_f, n_j=-(-(pz + nz + d_w) // n_f), radius=r, fused=fused)
+
+
+def barrier_schedule(geo: K1Geometry) -> tuple[np.ndarray, np.ndarray]:
+    """Which updates push x-halos, and the cluster barriers they cost.
+
+    Returns ``(push, barriers)``: ``push[row, tile, tau]`` is the kernel's
+    rule (``csrc/mwd.cu``), an update with cells pushes when a later update
+    of its tile, an odd number of updates on, has cells; ``barriers[row,
+    tile]`` counts the cluster barriers one CTA of that tile passes in the
+    row's launch: one after every pushing update that has z rows, and one
+    at the end of every step of a tile that pushes at all. At dw8 the
+    25-point ops (T = 2, one update with cells) never push.
+    """
+    comp, (pz, py, _) = geo.comp, geo.pads
+    lo_z, hi_z, lo_y, hi_y, lo_x, hi_x = geo.bounds
+    cells = ((np.minimum(comp.y1 + py, hi_y) > np.maximum(comp.y0 + py, lo_y))
+             & (hi_x > lo_x))                          # (row, tile, tau)
+    push = np.zeros_like(cells)
+    for t in range(comp.t_steps - 1):
+        push[..., t] = cells[..., t] & cells[..., t + 1::2].any(-1)
+    zs = (np.arange(geo.n_j)[:, None] * geo.n_f
+          - (np.arange(comp.t_steps)[None, :] + 1) * geo.radius)
+    z_rows = ((np.minimum(zs + geo.n_f, hi_z) > np.maximum(zs, lo_z))
+              .sum(0))                                  # steps with rows
+    barriers = ((push[..., :-1] * z_rows[:-1]).sum(-1)
+                + geo.n_j * push.any(-1))
+    if geo.fused:
+        barriers = barriers * comp.active.astype(bool)
+    return push, barriers

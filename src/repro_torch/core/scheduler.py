@@ -6,9 +6,9 @@ The port of the serving half of `repro.core.scheduler`: a two-lane
 (`window_close_s`), and the per-bucket launch-time estimator
 (`ServiceEstimator`). All of it is pure host-side policy.
 
-The estimator's dispatch overhead is a constructor argument (default 0.0):
-the port has no measured dispatch time for its card yet, and no TPU
-constant enters it.
+The estimator's dispatch overhead is a constructor argument (default
+0.0); the server passes the device spec's measured `launch_s`
+(`core.specs`), and no TPU constant enters it.
 """
 
 from __future__ import annotations

@@ -29,24 +29,28 @@ from repro_torch.kernels import stencil_fused, stencil_mwd, stencil_sweep
 
 ref = _ref
 
-# ops.mwd's own defaults; what plan="auto" resolves to until the port has a
-# plan registry and tuner
-DEFAULT_PLAN = MWDPlan(d_w=8, n_f=2, fused=True)
-
 
 def resolve_plan(spec: StencilSpec, state, plan, batch: int = 1) -> MWDPlan:
     """Turn `ops.mwd`'s `plan=` argument into a concrete `MWDPlan`.
 
-    `plan` may be an `MWDPlan` (used as-is) or ``"auto"``. The port has no
-    plan registry or tuner yet, so ``"auto"`` resolves to `DEFAULT_PLAN`
-    (``d_w=8, n_f=2, fused=True``, the defaults of `mwd`) for every op,
-    grid and batch size; its plan source is ``"default"``.
+    `plan` may be an `MWDPlan` (used as-is) or ``"auto"``, which resolves
+    registry-first (`core.registry.resolve_plan`) by the operator's
+    structural fingerprint, the grid shape, word size and batch size, and
+    the hardware fingerprint: a tuned entry, else a plan tuned under
+    another device spec and translated, else the model-scored tuner.
+    Single-device launches resolve with ``devices_x=1``; `batch` > 1
+    selects the ``b<B>`` key.
     """
     if isinstance(plan, MWDPlan):
         return plan
     if plan != "auto":
         raise ValueError(f"plan must be an MWDPlan or 'auto', got {plan!r}")
-    return DEFAULT_PLAN
+    from repro_torch.core import registry
+    cur = state[0]
+    resolved, _source = registry.resolve_plan(
+        spec, tuple(cur.shape[-3:]), word_bytes=cur.element_size(),
+        devices_x=1, batch=batch)
+    return resolved
 
 
 def _split_coeffs(spec: StencilSpec, coeffs):

@@ -48,7 +48,8 @@ import torch
 
 from repro_torch.core import ir, tiling
 from repro_torch.core import stencils as st
-from repro_torch.core.mwd import sync_dirichlet_frame
+from repro_torch.core.mwd import (K1Geometry, barrier_schedule,
+                                   k1_geometry, sync_dirichlet_frame)
 from repro_torch.kernels import _build
 from repro_torch.kernels._host import (LaunchCounter, TYPE_CODES,
                                          check_inputs, check_kernel_inputs,
@@ -100,40 +101,24 @@ def prepare(spec: st.StencilSpec, state, arrays, scalars, n_steps: int, *,
     cur, prev = state
     if acc_dtype is not None and acc_dtype == cur.dtype:
         acc_dtype = None                # native accumulation: no casts
-    r = spec.radius
-    if d_w % (2 * r) or d_w % n_f:
-        raise ValueError(f"need 2R | d_w and n_f | d_w (d_w={d_w}, R={r}, "
-                         f"n_f={n_f})")
-    check_inputs(spec, cur, prev, arrays)
-    prev = sync_dirichlet_frame(cur, prev, r)
     nz, ny, nx = cur.shape[-3:]
-    y_lo, y_hi = y_domain if y_domain is not None else (r, ny - r)
-    comp = tiling.compile_schedule(
-        tiling.make_diamond_schedule(d_w, r, n_steps, y_lo, y_hi))
+    geo = k1_geometry(spec.radius, (nz, ny, nx), d_w, n_f, n_steps,
+                      fused=fused, interior=interior, y_domain=y_domain)
+    check_inputs(spec, cur, prev, arrays)
+    prev = sync_dirichlet_frame(cur, prev, spec.radius)
     job = Job(op=spec, cur=cur, prev=prev, n_steps=n_steps)
-    if comp.n_rows == 0:                 # n_steps == 0: nothing to launch
+    if geo.comp.n_rows == 0:             # n_steps == 0: nothing to launch
         return job
-    if interior is None:
-        interior = (r, nz - r, r, ny - r, r, nx - r)
-    interior = tuple(int(v) for v in interior)
-    for ax, n in enumerate((nz, ny, nx)):
-        if not 0 <= interior[2 * ax] <= interior[2 * ax + 1] <= n:
-            raise ValueError(f"interior {interior} leaves the grid "
-                             f"{(nz, ny, nx)}")
-    pz, px, py = r, r, 2 * d_w + r
-    n_j = -(-(pz + nz + d_w) // n_f)
+    pz, py, px = geo.pads
     # x rows a multiple of 16 bytes, so the kernel streams them 16 bytes at
     # a time; the extra right-hand columns are never read
     x_hi = px + (-(nx + 2 * px)) % (16 // cur.element_size())
-    pads = ((pz, n_j * n_f - nz - pz), (py, py), (px, x_hi))
+    pads = ((pz, geo.n_j * n_f - nz - pz), (py, py), (px, x_hi))
     job.bufs = [edge_pad(cur, pads), edge_pad(prev, pads)]
     job.coeff = arrays.contiguous() if spec.n_coeff_arrays else None
     job.scalars = tuple(float(x) for x in scalars)
-    job.comp = comp
-    job.bounds = tuple(v + p for v, p in zip(interior,
-                                             (pz, pz, py, py, px, px)))
-    job.pads = (pz, py, px)
-    job.n_f, job.n_j, job.fused, job.acc_dtype = n_f, n_j, fused, acc_dtype
+    job.comp, job.bounds, job.pads = geo.comp, geo.bounds, geo.pads
+    job.n_f, job.n_j, job.fused, job.acc_dtype = n_f, geo.n_j, fused, acc_dtype
     return job
 
 
@@ -198,32 +183,11 @@ def _mwd_lib() -> ctypes.CDLL:
 
 
 def halo_schedule(job: Job) -> tuple[np.ndarray, np.ndarray]:
-    """Which updates push x-halos, and the cluster barriers they cost.
-
-    Returns ``(push, barriers)``: ``push[row, tile, tau]`` is the kernel's
-    rule (``csrc/mwd.cu``), an update with cells pushes when a later update
-    of its tile, an odd number of updates on, has cells; ``barriers[row,
-    tile]`` counts the cluster barriers one CTA of that tile passes in the
-    row's launch: one after every pushing update that has z rows, and one
-    at the end of every step of a tile that pushes at all. At dw8 the
-    25-point ops (T = 2, one update with cells) never push.
-    """
-    comp, (pz, py, _) = job.comp, job.pads
-    lo_z, hi_z, lo_y, hi_y, lo_x, hi_x = job.bounds
-    cells = ((np.minimum(comp.y1 + py, hi_y) > np.maximum(comp.y0 + py, lo_y))
-             & (hi_x > lo_x))                          # (row, tile, tau)
-    push = np.zeros_like(cells)
-    for t in range(comp.t_steps - 1):
-        push[..., t] = cells[..., t] & cells[..., t + 1::2].any(-1)
-    zs = (np.arange(job.n_j)[:, None] * job.n_f
-          - (np.arange(comp.t_steps)[None, :] + 1) * job.op.radius)
-    z_rows = ((np.minimum(zs + job.n_f, hi_z) > np.maximum(zs, lo_z))
-              .sum(0))                                  # steps with rows
-    barriers = ((push[..., :-1] * z_rows[:-1]).sum(-1)
-                + job.n_j * push.any(-1))
-    if job.fused:
-        barriers = barriers * comp.active.astype(bool)
-    return push, barriers
+    """Which updates of a prepared job push x-halos, and the cluster
+    barriers they cost (`core.mwd.barrier_schedule`)."""
+    return barrier_schedule(K1Geometry(
+        comp=job.comp, pads=job.pads, bounds=job.bounds, n_f=job.n_f,
+        n_j=job.n_j, radius=job.op.radius, fused=job.fused))
 
 
 def _geometry(job: Job) -> np.ndarray:

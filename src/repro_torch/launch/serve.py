@@ -13,9 +13,12 @@ per diamond row for all B grids). Telemetry (`--telemetry stdout` or
 ``jsonl:<path>``) reports per-bucket throughput, queue depth and rolling
 latency percentiles.
 
-Only exact padding classes are served so far: a ragged ladder (``pow2``,
-rungs) needs the frozen-halo masking that is not ported yet and is refused.
-Runs on ``cuda`` unless ``--device cpu`` is given.
+Plans resolve registry-first per (class, batch size) under the ``b<B>``
+key (`core.registry`; ``--registry PATH`` names the file, ``--spec`` the
+device spec the model prices against). Only exact padding classes are
+served so far: a ragged ladder (``pow2``, rungs) needs the frozen-halo
+masking that is not ported yet and is refused. Runs on ``cuda`` unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import ir, padding, precision, scheduler
+from repro_torch.core import registry as reg
+from repro_torch.core import specs as devspecs
 from repro_torch.core import stencils as stc
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -85,14 +90,21 @@ def _require_exact(ladder) -> padding.PaddingLadder:
     return lad
 
 
-def _resolve(spec, plan, batch: int):
-    """``(MWDPlan, plan_source)`` of a launch."""
+def _resolve(spec, plan, batch: int, shape, word: int, registry=None):
+    """``(MWDPlan, plan_source)`` of a launch of `batch` grids of `shape`.
+
+    ``"auto"`` resolves in `registry` (default: `reg.default_registry`);
+    the source is the registry's (``registry:measured``, ``model``, ...).
+    """
     if plan == "auto":
-        return ops.resolve_plan(spec, None, plan, batch=batch), "default"
+        registry = registry or reg.default_registry()
+        return registry.resolve(spec, tuple(shape), word_bytes=word,
+                                devices_x=1, batch=batch)
     return plan, "explicit"
 
 
-def _launch_batch(spec, states, coeffs_list, n_steps, plan, padded_shape):
+def _launch_batch(spec, states, coeffs_list, n_steps, plan, padded_shape,
+                  registry=None):
     """One batched MWD advance of exact-fit grids.
 
     Every grid must already have the class shape: ragged batches need the
@@ -105,7 +117,8 @@ def _launch_batch(spec, states, coeffs_list, n_steps, plan, padded_shape):
         raise NotImplementedError(
             f"{spec.name}: ragged batch {shapes} in class {padded_shape}; "
             "padding classes other than exact are not ported yet")
-    plan, source = _resolve(spec, plan, len(states))
+    plan, source = _resolve(spec, plan, len(states), padded_shape,
+                            states[0][0].element_size(), registry)
     cur, prev = ops.mwd_batched(spec, list(states), list(coeffs_list),
                                 n_steps, plan=plan)
     if cur.is_cuda:
@@ -114,7 +127,8 @@ def _launch_batch(spec, states, coeffs_list, n_steps, plan, padded_shape):
 
 
 def serve_queue(requests, *, max_batch: int = 4, batch_window_ms: float = 5.0,
-                plan="auto", ladder=None, admission=None, telemetry=None):
+                plan="auto", ladder=None, admission=None, telemetry=None,
+                registry=None):
     """Continuous-batching serving loop over `requests`.
 
     Arrivals are admitted into a two-lane bounded queue; offers past the
@@ -127,13 +141,16 @@ def serve_queue(requests, *, max_batch: int = 4, batch_window_ms: float = 5.0,
     Returns ``(results, records)``: ``results[rid]`` is the request's
     ``(cur, prev)`` or `Rejected`, and one record dict per batch
     (``rids, size, key, done_s, launch_s, lane, padded_shape, waste, plan,
-    plan_source``).
+    plan_source``). `registry` is where ``plan="auto"`` resolves (default:
+    the process default registry). The launch-time estimator's dispatch
+    is the device spec's measured `launch_s`.
     """
     lad = _require_exact(ladder)
     tele = tlm.make_telemetry(telemetry)
     own_tele = not isinstance(telemetry, tlm.Telemetry)
     queue = scheduler.LaneQueue(admission or scheduler.AdmissionPolicy())
-    est = scheduler.ServiceEstimator()
+    est = scheduler.ServiceEstimator(
+        dispatch_s=devspecs.current_spec().launch_s)
     agg = tlm.Aggregator()
     pending = sorted(requests, key=lambda r: r.arrival_s)
     keys = {id(r): bucket_key(r.spec, r.state, r.coeffs, r.n_steps,
@@ -187,7 +204,7 @@ def serve_queue(requests, *, max_batch: int = 4, batch_window_ms: float = 5.0,
         t_launch = time.perf_counter()
         outs, plan_used, source = _launch_batch(
             head.spec, [r.state for r in batch], [r.coeffs for r in batch],
-            head.n_steps, plan, key[1])
+            head.n_steps, plan, key[1], registry)
         launch_s = time.perf_counter() - t_launch
         done = now()
         est.observe(key, len(batch), launch_s)
@@ -216,18 +233,13 @@ def serve_queue(requests, *, max_batch: int = 4, batch_window_ms: float = 5.0,
     return results, records
 
 
-def default_grid(spec) -> tuple[int, int, int]:
-    """Sanity-scale default grid per stencil (the reference's default)."""
-    return (10, 18, 14) if spec.radius == 1 else (12, 26, 18)
-
-
 def serve_stencil(name: str, grid, n_steps: int, n_requests: int, *,
                   max_batch: int = 4, batch_window_ms: float = 5.0,
                   arrival_ms: float = 1.0, seed: int = 0, pad=None,
                   telemetry=None, interactive_every: int = 0,
                   deadline_ms: float | None = None,
                   max_queue_depth: int | None = None, plan="auto",
-                  dtype=None, device="cuda"):
+                  dtype=None, device="cuda", registry=None):
     """Stencil-advance request-queue server: continuous batching over MWD.
 
     `name` is any operator `ir.resolve_op` knows. `grid` is one Z,Y,X shape
@@ -237,7 +249,8 @@ def serve_stencil(name: str, grid, n_steps: int, n_requests: int, *,
     through `serve_queue`. Every `interactive_every`-th request (0 = none)
     rides the interactive lane with a `deadline_ms` SLO; `max_queue_depth`
     bounds admission. `plan` is ``"auto"`` (`ops.resolve_plan`) or an
-    explicit `MWDPlan` applied to every launch.
+    explicit `MWDPlan` applied to every launch; `registry` is where
+    ``"auto"`` resolves (default: the process default registry).
 
     Every batch size the queue can form is launched once before serving,
     so the kernel build and first launches stay out of the latency figures.
@@ -250,7 +263,7 @@ def serve_stencil(name: str, grid, n_steps: int, n_requests: int, *,
     dev = resolve_device(device)
     grids = ([tuple(g) for g in grid]
              if grid and isinstance(grid[0], (tuple, list))
-             else [tuple(grid)] if grid else [default_grid(spec)])
+             else [tuple(grid)] if grid else [reg.default_grid(spec)])
     ladder = _require_exact(pad)
     dt = precision.parse_dtype(dtype) if dtype is not None else None
     problems = [stc.make_problem(spec, grids[i % len(grids)], dtype=dt,
@@ -259,7 +272,9 @@ def serve_stencil(name: str, grid, n_steps: int, n_requests: int, *,
     classes: dict[tuple, list] = {}
     for p in problems:
         classes.setdefault(ladder.padded_shape(p[0][0].shape), []).append(p)
-    head_plan, source = _resolve(spec, plan, max(1, max_batch))
+    head_plan, source = _resolve(spec, plan, max(1, max_batch),
+                                 next(iter(classes)),
+                                 problems[0][0][0].element_size(), registry)
     print(f"serving {spec.name} on {dev} in {len(classes)} class(es) "
           f"{sorted(classes)}: plan=dw{head_plan.d_w}.nf{head_plan.n_f}."
           f"{'fused' if head_plan.fused else 'row'} ({source}); "
@@ -268,7 +283,7 @@ def serve_stencil(name: str, grid, n_steps: int, n_requests: int, *,
     for cls, members in classes.items():
         for b in range(1, min(max_batch, len(members)) + 1):
             _launch_batch(spec, [members[0][0]] * b, [members[0][1]] * b,
-                          n_steps, plan, cls)
+                          n_steps, plan, cls, registry)
 
     requests = [
         StencilRequest(
@@ -286,7 +301,8 @@ def serve_stencil(name: str, grid, n_steps: int, n_requests: int, *,
     results, records = serve_queue(requests, max_batch=max_batch,
                                    batch_window_ms=batch_window_ms,
                                    plan=plan, ladder=ladder,
-                                   admission=admission, telemetry=telemetry)
+                                   admission=admission, telemetry=telemetry,
+                                   registry=registry)
     t_wall = time.perf_counter() - t_start
 
     done_by_rid = {rid: rec["done_s"] for rec in records
@@ -348,12 +364,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="admission bound per lane")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
+    ap.add_argument("--registry", default=None,
+                    help=f"plan registry path (default ${reg.ENV_VAR} or "
+                         f"{reg.DEFAULT_PATH})")
+    ap.add_argument("--spec", default=None,
+                    help="device spec name or spec-file path plan "
+                         "resolution prices against (default: "
+                         f"${devspecs.ENV_SPEC} or "
+                         f"{devspecs.DEFAULT_SPEC_NAME})")
     return ap
 
 
 def main(argv=None):
     """CLI entry point: the stencil request-queue server."""
     args = build_parser().parse_args(argv)
+    if args.spec:
+        devspecs.set_default_spec(args.spec)
     if args.op_module:
         import importlib
         importlib.import_module(args.op_module)
@@ -369,7 +395,9 @@ def main(argv=None):
                   interactive_every=args.interactive_every,
                   deadline_ms=args.deadline_ms,
                   max_queue_depth=args.max_queue_depth,
-                  dtype=args.dtype, device=args.device)
+                  dtype=args.dtype, device=args.device,
+                  registry=(reg.PlanRegistry(args.registry) if args.registry
+                            else None))
 
 
 if __name__ == "__main__":

@@ -387,3 +387,60 @@ def test_sweep_kernel_large_radius_reads_in_place(cuda):
                                      seed=16, device=cuda)
     cfg, _ = _sweep_vs_plain(spec, state, coeffs, 2, 8)
     assert cfg["copy"] == "in-place"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(tst.SPECS) + ["aniso11"])
+def test_fit_twin_equals_kernel_config(cuda, name):
+    """models.mwd_smem_plan, the machine model's twin of K1's launch choice,
+    against the kernel's own on every width up to the first that fits no
+    more: equal where it fits, E_SMEM where it does not."""
+    from repro_torch.core import models
+    spec = _spec(name)
+    r = spec.radius
+    keys = ("cluster", "slab", "stage", "threads", "smem_bytes", "depth",
+            "cdepth")
+    for dt, word in (("f32", 4), ("f64", 8)):
+        for nx in (40, 200):
+            state, coeffs = tst.make_problem(spec, (2 * r + 4, 2 * r + 4, nx),
+                                             dtype=dt, seed=0, device=cuda)
+            arrays, scalars = tir.split_coeffs(spec, coeffs)
+            d_w, twins = 2 * r, [True]
+            while any(twins):
+                twins = []
+                for n_f in (n for n in (1, 2, 4) if d_w % n == 0):
+                    twin = models.mwd_smem_plan(spec, d_w, n_f, nx, word)
+                    twins.append(twin)
+                    job = tkern.prepare(spec, state, arrays, scalars, 2,
+                                        d_w=d_w, n_f=n_f, fused=True)
+                    if twin is None:
+                        with pytest.raises(RuntimeError, match=r"\(-5\)"):
+                            tkern.kernel_config(job)
+                    elif twin.per_sm:
+                        cfg = tkern.kernel_config(job)
+                        assert {k: cfg[k] for k in keys} == \
+                            {k: getattr(twin, k) for k in keys}
+                d_w += 2 * r
+
+
+@pytest.mark.gpu
+def test_measured_tune_one_on_a_small_grid(cuda, tmp_path, monkeypatch):
+    """tune_one times whole ops.mwd calls on the card, persists the winner,
+    and a second run measures nothing; plan="auto" then resolves it."""
+    from repro_torch.core import registry
+    from repro_torch.launch import tune
+    monkeypatch.setenv(registry.ENV_VAR, str(tmp_path / "plans.json"))
+    spec, grid = tst.SPECS["7pt-var"], (16, 40, 64)
+    reg = registry.default_registry()
+    first = tune.tune_one(spec, grid, reg, max_evals=4, reps=2, n_steps=4,
+                          device=cuda)
+    assert first["source"] == "measured" and first["measurements"] > 0
+    second = tune.tune_one(spec, grid, reg, max_evals=4, reps=2, n_steps=4,
+                           device=cuda)
+    assert (second["source"], second["measurements"]) == ("cached", 0)
+    plan, source = registry.resolve_plan(spec, grid)
+    assert (plan, source) == (first["plan"], "registry:measured")
+    state, coeffs = tst.make_problem(spec, grid, seed=3, device=cuda)
+    assert_bitwise(tops.mwd(spec, state, coeffs, 4, plan="auto"),
+                   tops.mwd(spec, state, coeffs, 4, d_w=plan.d_w,
+                            n_f=plan.n_f, fused=plan.fused))

@@ -19,6 +19,7 @@ from repro.kernels import ops as rops
 from repro.kernels import stencil_mwd as rmwd
 from repro_torch.core import ir as tir
 from repro_torch.core import mwd as tmwd
+from repro_torch.core import registry as treg
 from repro_torch.core import stencils as tst
 from repro_torch.kernels import _host
 from repro_torch.kernels import ops as tops
@@ -260,17 +261,20 @@ def test_batched_refusals():
         tkern.mwd_run_batched(spec, s0, None, c0, 2)
 
 
-def test_plan_resolution_and_geometry_checks():
+def test_plan_resolution_and_geometry_checks(tmp_path, monkeypatch):
+    monkeypatch.setenv(treg.ENV_VAR, str(tmp_path / "plans.json"))
     spec = tst.SPECS["7pt-var"]
     state, coeffs = tst.make_problem(spec, (8, 14, 10), seed=0, device="cpu")
-    assert tops.resolve_plan(spec, state, "auto") == tops.DEFAULT_PLAN
-    assert tops.DEFAULT_PLAN == tmwd.MWDPlan(d_w=8, n_f=2, fused=True)
+    auto = tops.resolve_plan(spec, state, "auto")
+    assert (auto, "model") == treg.resolve_plan(spec, (8, 14, 10),
+                                                word_bytes=4)
     explicit = tmwd.MWDPlan(d_w=4, n_f=4, fused=False)
     assert tops.resolve_plan(spec, state, explicit) is explicit
     with pytest.raises(ValueError, match="auto"):
         tops.resolve_plan(spec, state, "tuned")
     assert_bitwise(tops.mwd(spec, state, coeffs, 3, plan="auto"),
-                   tops.mwd(spec, state, coeffs, 3, d_w=8, n_f=2))
+                   tops.mwd(spec, state, coeffs, 3, d_w=auto.d_w,
+                            n_f=auto.n_f, fused=auto.fused))
     with pytest.raises(ValueError, match="2R"):
         tops.mwd(spec, state, coeffs, 2, d_w=5, n_f=1)
     with pytest.raises(ValueError, match="n_f"):

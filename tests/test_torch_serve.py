@@ -14,6 +14,7 @@ from repro.core import stencils as rst
 from repro.kernels import ops as rops
 from repro.launch import serve as rserve
 from repro_torch.core import padding as tpad
+from repro_torch.core import registry as treg
 from repro_torch.core import scheduler as tsched
 from repro_torch.core import stencils as tst
 from repro_torch.core.mwd import MWDPlan
@@ -55,11 +56,19 @@ def test_serve_stencil_matches_reference_per_request(capsys):
     assert "served 4/4" in capsys.readouterr().out
 
 
-def test_serve_stencil_auto_plan_is_the_default(capsys):
+def test_serve_stencil_auto_plan_is_the_default(capsys, tmp_path,
+                                                monkeypatch):
+    """plan="auto" resolves registry-first; on an empty registry the
+    model-scored tuner's plan for the batch-2 launch (source "model")."""
+    monkeypatch.setenv(treg.ENV_VAR, str(tmp_path / "plans.json"))
     rep = tserve.serve_stencil("7pt-const", (6, 18, 8), 2, 2, max_batch=2,
                                arrival_ms=0.0, device="cpu")
-    assert rep["plan"] == tops.DEFAULT_PLAN and rep["source"] == "default"
-    assert all(r["plan_source"] == "default" for r in rep["records"])
+    want = treg.resolve_plan(tst.SPECS["7pt-const"], (6, 18, 8),
+                             word_bytes=4, batch=2)
+    assert (rep["plan"], rep["source"]) == want
+    assert want[1] == "model"
+    assert all(r["plan_source"] == "model" and r["plan"] == want[0]
+               for r in rep["records"])
     capsys.readouterr()
 
 
