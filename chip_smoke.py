@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
-    python3 chip_smoke.py --sweep-k2 | --sweep-k3
+    python3 chip_smoke.py --sweep-k2 | --sweep-k3 | --calibrate OUT_DIR
 
 Run from a checkout of the repository on a machine with a CUDA card (an
 H100: the kernels build for sm_90a). Phases, each of which raises on
@@ -14,6 +14,12 @@ failure so the script exits non-zero:
    spec (src/repro_torch/specs/h100-sxm.json) against the card: its SM
    count, L2 and shared-memory sizes as the card reports them, its launch
    and cluster-barrier costs measured beside the spec's (a `spec` line);
+1b. energy: the energy model's three constants measured through NVML
+   (ctypes on libnvidia-ml.so.1: the card idle with a live context, a
+   2 GiB device-to-device copy_, an f32 GEMM with TF32 off, each window at
+   least 1 s) beside the spec's, then one K1 and one K2 advance at 512^3
+   x 8 steps, 7pt-var, each repeated for at least 1 s, with
+   models.energy beside the joules NVML counted (an `energy` line);
 2. K1 (the MWD kernel) against its plain PyTorch version on the card at a
    mid-size grid: the four paper ops and the custom mixed op aniso11, fused
    and per-row, a B=2 batch against a per-item loop, a grid that is not a
@@ -24,9 +30,15 @@ failure so the script exits non-zero:
    the others), fused, per-row, batched and f64; the machine model's fit
    twin (models.mwd_smem_plan) against the kernel's own launch choice on
    every width up to the first that fits no more, f32 and f64, 40, 200 and
-   512 columns, each refusal predicted; and F1: ops.mwd(aniso11,
+   512 columns, each refusal predicted, the instance's static shared
+   memory equal to the twin's, no plan refused with the runtime's invalid
+   argument (F3); and F1: ops.mwd(aniso11,
    plan="auto"), which the port once refused, against ops.naive with K1
    bitwise at the resolved plan;
+2a. calibration: K1 alone by CUDA events at CALIBRATION_PLANS and
+   CALIBRATION_SIZES, models.fit_k1 over them, and the fitted phase costs
+   and residuals beside the spec's committed costs and theirs (a
+   `calibration` line); the tune phase prices with the committed spec;
 2b. the measured tuner: tune_one per paper op at 512^3 x 8 steps into the
    run's own plan registry (a temporary file), one `tune_plan` line per
    plan scored (the model's prediction beside the measured whole ops.mwd
@@ -71,7 +83,14 @@ failure so the script exits non-zero:
    threads, planes a step, layout, launches per pass, shared memory,
    resident CTAs, coefficient streams, ptxas registers and spills), and
    F.conv3d in full f32 (TF32 off) as K2's library yardstick
-   (7pt-const).
+   (7pt-const);
+6. the grid-size sweep: launch.sweep.run_sweep over the four paper ops at
+   SWEEP_SIZES^3, fused, 8 steps, into a temporary results directory,
+   plans from the run's registry (measured at 512^3, the calibrated model
+   elsewhere), then a second run_sweep that must measure nothing; a
+   `sweep_point` line per point with ops.spatial (K2) timed beside it,
+   ops.mwd against ops.naive at the smallest size, and the fit_ecm
+   summary.
 
 Before the last line come one `baseline` JSON line per (op, method) and a
 JSON object with one entry per kernel; the last line is
@@ -82,9 +101,15 @@ result. It imports nothing of JAX.
 Bounds take the HBM rate and f32 peak of the device spec.
 
 With --compare it only times K1 (at dw8.nf2), K2 and K3 per paper op at
-512^3 x 8, for the checkout at OTHER_CHECKOUT and for this one in turns
-(other, this, this, other), each in its own process that builds its own
-kernels. With
+512^3 x 8, and K1 at the calibration phase's plans and sizes, for the
+checkout at OTHER_CHECKOUT and for this one in turns (other, this, this,
+other), each in its own process that builds its own kernels, and prints
+K1's phase costs fitted to each tree's times (this tree's models.fit_k1).
+With --calibrate it runs phase 1's build, the energy phase, the fit twin
+and K1 at every fused plan up to d_w 16 at 256^3 and 512^3, and writes
+OUT_DIR/calibration.json, the measurements behind the spec's energy
+constants and K1 phase costs, and OUT_DIR/h100-sxm.json, the spec with
+them (its `source` names the card and power limit). With
 --sweep-k3 it only times K3 per paper op at every tile plan that fits
 (`sweep_fused`), the measurement behind its choice of x tile, threads,
 layout and planes a step; with --sweep-k2 it only times K2 per paper op at
@@ -95,6 +120,7 @@ prefetch and instance.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
@@ -107,6 +133,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
@@ -117,6 +144,8 @@ MAIN_GRID = (512, 512, 512)
 MAIN_STEPS = 8
 SERVE_OP = "7pt-var"
 TIMING_REPS = 5
+ENERGY_WINDOW_S = 1.0        # NVML energy counter windows at least this long
+CALIBRATED_BY = "Measured by chip_smoke.py --calibrate"
 
 
 
@@ -465,14 +494,27 @@ def k1_ms(spec, state, arrays, scalars, kw) -> float:
     return cuda_ms(lambda: sm.run_kernel(job), TIMING_REPS, restore)
 
 
-def phase_spec(dev) -> dict:
+def phase_spec(dev, ptxas: dict) -> dict:
     """The device spec against the card: what the card reports of its SMs,
-    L2 and shared memory must equal the spec's figures; its launch and
-    cluster-barrier costs are measured here beside the spec's."""
+    threads, registers, L2 and shared memory must equal the spec's figures,
+    and the registers ptxas gave each f32 and f64 K1 instance the K1 model's
+    (models.MWD_REGISTERS); its launch and cluster-barrier costs are
+    measured here beside the spec's."""
     import torch
+    from repro_torch.core import models
     spec = chip()
+    for (word, stage, hoist), regs in models.MWD_REGISTERS.items():
+        name = {4: "ff", 8: "dd"}.get(word)
+        got = [v["registers"] for k, v in ptxas.items()
+               if name and f"mwd_row_kernelI{name}Lb{stage}ELi{hoist}E" in k]
+        check(not name or got == [regs],
+              f"ptxas gave K1 (word {word}, stage {stage}, hoist {hoist}) "
+              f"{got} registers, the model counts {regs}")
     props = torch.cuda.get_device_properties(dev)
     read = {"n_sm": props.multi_processor_count,
+            "threads_sm": getattr(props, "max_threads_per_multi_processor",
+                                  None),
+            "regs_sm": getattr(props, "regs_per_multiprocessor", None),
             "l2_bytes": getattr(props, "L2_cache_size", None),
             "smem_block_bytes": getattr(props, "shared_memory_per_block_optin",
                                         None),
@@ -497,23 +539,275 @@ def phase_spec(dev) -> dict:
     return out
 
 
+class Nvml:
+    """The card's energy counter and power draw through NVML (ctypes on
+    libnvidia-ml.so.1, installed with the GPU's kernel module; no Python
+    package)."""
+
+    def __init__(self, dev):
+        import ctypes
+        import torch
+        self.ct = ctypes
+        self.lib = ctypes.CDLL("libnvidia-ml.so.1")
+        check(self.lib.nvmlInit_v2() == 0, "nvmlInit_v2 failed")
+        self.handle = ctypes.c_void_p()
+        uuid = getattr(torch.cuda.get_device_properties(dev), "uuid", None)
+        rc = (self.lib.nvmlDeviceGetHandleByUUID(
+            f"GPU-{uuid}".encode(), ctypes.byref(self.handle))
+            if uuid is not None else -1)
+        if rc != 0:
+            rc = self.lib.nvmlDeviceGetHandleByIndex_v2(
+                dev.index or 0, ctypes.byref(self.handle))
+        check(rc == 0, f"NVML found no handle for the card ({rc})")
+
+    def energy_j(self) -> float:
+        """Joules the card has drawn since NVML began counting (it counts
+        millijoules)."""
+        mj = self.ct.c_ulonglong()
+        check(self.lib.nvmlDeviceGetTotalEnergyConsumption(
+            self.handle, self.ct.byref(mj)) == 0,
+            "nvmlDeviceGetTotalEnergyConsumption failed")
+        return mj.value / 1e3
+
+    def power_w(self) -> float:
+        mw = self.ct.c_uint()
+        check(self.lib.nvmlDeviceGetPowerUsage(
+            self.handle, self.ct.byref(mw)) == 0,
+            "nvmlDeviceGetPowerUsage failed")
+        return mw.value / 1e3
+
+    def window(self, fn, min_s: float = ENERGY_WINDOW_S) -> dict:
+        """Run `fn` back to back for at least `min_s` seconds: the calls,
+        the seconds and the joules the counter moved over the window."""
+        import torch
+        fn()                                    # warm-up, outside
+        torch.cuda.synchronize()
+        calls, e0, t0 = 0, self.energy_j(), time.perf_counter()
+        while True:
+            fn()
+            calls += 1
+            if calls % 4 == 0:
+                torch.cuda.synchronize()
+                if time.perf_counter() - t0 >= min_s:
+                    break
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        return {"calls": calls, "s": t, "j": self.energy_j() - e0,
+                "w_end": self.power_w()}
+
+
+def measure_energy_constants(nvml: Nvml, dev) -> dict:
+    """The energy model's three constants, measured on the card.
+
+    Static draw: the card idle for ENERGY_WINDOW_S with a live context.
+    Joules per HBM byte: a device-to-device copy_ of 2 GiB (read + written
+    per call), less the static draw over the window. Joules per flop: an
+    f32 GEMM of 8192^3 with TF32 off (2 n^3 flops a call, few bytes), less
+    the static draw and its compulsory bytes at the per-byte figure. A
+    calibration load, not a kernel of the port.
+    """
+    import torch
+    torch.cuda.synchronize()
+    time.sleep(0.5)
+    e0, t0 = nvml.energy_j(), time.perf_counter()
+    time.sleep(ENERGY_WINDOW_S)
+    idle = {"s": time.perf_counter() - t0, "j": nvml.energy_j() - e0,
+            "w_end": nvml.power_w()}
+    static_w = idle["j"] / idle["s"]
+    src = torch.empty(2 ** 29, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    src.fill_(1.0)
+    copy = nvml.window(lambda: dst.copy_(src))
+    copy_bytes = copy["calls"] * 2 * src.numel() * 4
+    j_byte = (copy["j"] - static_w * copy["s"]) / copy_bytes
+    del src, dst
+    n = 8192
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = torch.randn(n, n, device=dev)
+    b = torch.randn(n, n, device=dev)
+    gemm = nvml.window(lambda: a @ b)
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    del a, b
+    torch.cuda.empty_cache()
+    flops = gemm["calls"] * 2.0 * n ** 3
+    gemm_bytes = gemm["calls"] * 3.0 * n * n * 4
+    j_flop = (gemm["j"] - static_w * gemm["s"] - j_byte * gemm_bytes) / flops
+    return {"static_power_w": static_w, "joules_per_hbm_byte": j_byte,
+            "joules_per_flop": j_flop, "idle": idle, "copy": copy,
+            "copy_tb_per_s": copy_bytes / copy["s"] / 1e12, "gemm": gemm,
+            "gemm_tflop_per_s": flops / gemm["s"] / 1e12}
+
+
+def phase_energy(dev, nvml: Nvml) -> dict:
+    """The energy model against NVML: its three constants measured beside
+    the spec's (an `energy` line), then one K1 and one K2 advance at 512^3
+    x 8 steps, 7pt-var, each repeated for at least ENERGY_WINDOW_S, with
+    models.energy (the spec's constants, the call's modeled HBM bytes and
+    flops, the measured seconds) beside the joules NVML counted."""
+    import torch
+    from repro_torch.core import ir, models, traffic
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_mwd as sm
+    t0 = time.perf_counter()
+    spec_chip = chip()
+    measured = measure_energy_constants(nvml, dev)
+    fields = ("static_power_w", "joules_per_flop", "joules_per_hbm_byte")
+    out = {"measured": measured,
+           "spec": {f: getattr(spec_chip, f) for f in fields}}
+    spec = st.SPECS["7pt-var"]
+    state, coeffs = st.random_problem(spec, MAIN_GRID, seed=0, device=dev)
+    arrays, scalars = ir.split_coeffs(spec, coeffs)
+    lups = math.prod(MAIN_GRID) * MAIN_STEPS
+    flops = spec.flops_per_lup * lups
+    k1 = dict(d_w=8, n_f=2, fused=True)
+    job = sm.prepare(spec, state, arrays, scalars, MAIN_STEPS, **k1)
+    runs = {
+        "mwd": (lambda: sm.run_kernel(job),
+                traffic.mwd_run_traffic(spec, MAIN_GRID, MAIN_STEPS,
+                                        **k1)["bytes"]),
+        "sweep": (lambda: ops.spatial(spec, state, coeffs, MAIN_STEPS),
+                  traffic.spatial_pass_traffic(spec, MAIN_GRID, 8)["bytes"]
+                  * MAIN_STEPS)}
+    for kernel, (fn, hbm_bytes) in runs.items():
+        w = nvml.window(fn)
+        per_call = w["s"] / w["calls"]
+        model = {which: models.energy(flops, hbm_bytes, per_call, c).total_j
+                 for which, c in (("spec", spec_chip), ("measured",
+                                  SimpleNamespace(**{f: measured[f]
+                                                     for f in fields})))}
+        nvml_j = w["j"] / w["calls"]
+        out[kernel] = {"op": spec.name, "grid": list(MAIN_GRID),
+                       "steps": MAIN_STEPS, "calls": w["calls"],
+                       "ms_per_call": per_call * 1e3, "hbm_bytes": hbm_bytes,
+                       "flops": flops, "nvml_j_per_call": nvml_j,
+                       "model_j_per_call": model["spec"],
+                       "model_j_measured_constants": model["measured"],
+                       "model_over_nvml": model["spec"] / nvml_j}
+    del job, state, coeffs, arrays
+    torch.cuda.empty_cache()
+    log("energy " + json.dumps(out))
+    log(f"phase 1b energy: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# the calibration phase's K1 plans per kind of op (d_w, n_f, fused) and
+# sizes: the plans phase 2b scores most, at three grid sizes
+CALIBRATION_PLANS = {
+    1: ((8, 1, True), (8, 2, True), (8, 4, True), (14, 2, True),
+        (16, 2, True), (8, 2, False)),
+    4: ((8, 1, True), (8, 2, True), (8, 4, True), (16, 4, True),
+        (8, 4, False))}
+CALIBRATION_SIZES = (256, 512)
+
+
+def k1_calibration_points(dev, plans=CALIBRATION_PLANS,
+                          sizes=CALIBRATION_SIZES) -> list[dict]:
+    """K1 alone by CUDA events (`k1_ms`: one prepared job, 8 steps, f32,
+    median of TIMING_REPS) for each paper op at each plan and N^3 size,
+    with the launch choice the kernel reports, on problems drawn on the
+    device (`random_problem`; `make_problem` in a checkout without it)."""
+    import torch
+    from repro_torch.core import ir, models
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import stencil_mwd as sm
+    draw = getattr(st, "random_problem", st.make_problem)
+    points = []
+    for name, spec in st.SPECS.items():
+        for n in sizes:
+            grid = (n, n, n)
+            state, coeffs = draw(spec, grid, seed=0, device=dev)
+            arrays, scalars = ir.split_coeffs(spec, coeffs)
+            for d_w, n_f, fused in plans[spec.radius]:
+                if not models.smem_fits(spec, d_w, n_f, n):
+                    continue
+                kw = dict(d_w=d_w, n_f=n_f, fused=fused)
+                job = sm.prepare(spec, state, arrays, scalars, MAIN_STEPS,
+                                 **kw)
+                cfg = sm.kernel_config(job)
+                del job
+                ms = k1_ms(spec, state, arrays, scalars, kw)
+                points.append({"op": name, "grid": list(grid),
+                               "steps": MAIN_STEPS, **kw, "k1_ms": ms,
+                               "config": cfg})
+            del state, coeffs, arrays
+            torch.cuda.empty_cache()
+    return points
+
+
+def k1_fit_points(points: list[dict]) -> list[dict]:
+    """models.fit_k1's inputs of measured K1 points, under the spec's model."""
+    from repro_torch.core import models
+    from repro_torch.core import stencils as st
+    out = []
+    for p in points:
+        pred = models.k1_predict(st.SPECS[p["op"]], tuple(p["grid"]),
+                                 p["d_w"], p["n_f"], p["steps"],
+                                 fused=p["fused"])
+        key = (f"{p['op']} {'x'.join(map(str, p['grid']))} dw{p['d_w']}."
+               f"nf{p['n_f']}.{'fused' if p['fused'] else 'row'}")
+        out.append(models.k1_fit_point(key, pred, p["k1_ms"] / 1e3))
+    return out
+
+
+def phase_calibration(dev) -> dict:
+    """K1's phase costs against the spec: K1 at CALIBRATION_PLANS and
+    CALIBRATION_SIZES (`k1_calibration_points`), models.fit_k1 over them,
+    the fitted costs beside the spec's committed ones, and the residuals of
+    both (a `calibration` line). The tune phase prices plans with the
+    committed spec; this phase only checks it."""
+    from repro_torch.core import models
+    t0 = time.perf_counter()
+    points = k1_calibration_points(dev)
+    fit_pts = k1_fit_points(points)
+    spec_chip = chip()
+    committed = models.K1Calibration(
+        costs_s={f: getattr(spec_chip, f) for f in models.K1_COSTS.values()},
+        n_points=len(fit_pts), max_rel_err=0.0)
+    refit = models.k1_residuals(fit_pts)
+    spec_res = models.k1_residuals(fit_pts, committed)
+    out = {"points": len(fit_pts), "fitted_s": refit["calibration"]
+           ["costs_s"], "spec_s": committed.costs_s,
+           "fitted_max_abs_rel_err": refit["max_abs_rel_err"],
+           "fitted_mean_abs_rel_err": refit["mean_abs_rel_err"],
+           "spec_max_abs_rel_err": spec_res["max_abs_rel_err"],
+           "spec_mean_abs_rel_err": spec_res["mean_abs_rel_err"],
+           "per_point": [{"key": a["key"], "measured_ms":
+                          a["measured_s"] * 1e3,
+                          "spec_model_ms": b["calibrated_s"] * 1e3,
+                          "fitted_ms": a["calibrated_s"] * 1e3}
+                         for a, b in zip(refit["per_point"],
+                                         spec_res["per_point"])]}
+    log("calibration " + json.dumps(out))
+    log(f"phase 2a calibration: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def check_fit_twin(dev) -> dict:
     """models.mwd_smem_plan, the Python twin of K1's launch choice, against
     the kernel's own (stencil_mwd.kernel_config): the four paper ops and
     aniso11, f32 and f64, 40, 200 and 512 columns, every d_w from 2R up to
     the first width at which no n_f in {1, 2, 4} fits. Where the twin says
     no fit, the kernel must refuse with E_SMEM (-5); where it fits, cluster,
-    slab, staging, threads, shared memory and ring depths must be equal.
-    Where the twin counts no CTA per SM (the rings fit the opt-in limit but
-    not beside the block's static shared memory), the kernel either takes
-    the same plan or refuses (E_CLUSTER, or the runtime's invalid
-    argument); models.smem_fits excludes these plans."""
+    slab, staging, threads, shared memory and ring depths must be equal,
+    and the instance's static shared memory (which choose() counts beside
+    the rings) must be models.MWD_STATIC_SMEM. Where the twin counts no CTA
+    per SM by the kernel's conservative per-SM count, the kernel either
+    takes the same plan or refuses with E_CLUSTER (-4), never with the
+    runtime's invalid argument; models.smem_fits excludes these plans.
+    `moved` counts the cases whose plan differs from the one the rings
+    alone would have chosen (the opt-in limit without the static bytes),
+    where K1 refused plans before it counted them."""
     from repro_torch.core import ir, models
     from repro_torch.core import stencils as st
     from repro_torch.kernels import stencil_mwd as sm
     t0 = time.perf_counter()
     counts = {"equal": 0, "e_smem": 0, "per_sm_0_refused": 0,
-              "per_sm_0_equal": 0}
+              "per_sm_0_equal": 0, "moved": 0}
+    rings_alone = dataclasses.replace(
+        chip(), smem_block_bytes=chip().smem_block_bytes
+        + models.MWD_STATIC_SMEM)
     refusals = set()
     keys = ("cluster", "slab", "stage", "threads", "smem_bytes", "depth",
             "cdepth")
@@ -533,6 +827,8 @@ def check_fit_twin(dev) -> dict:
                             continue
                         twin = models.mwd_smem_plan(spec, d_w, n_f, nx, word)
                         twins.append(twin)
+                        counts["moved"] += twin != models.mwd_smem_plan(
+                            spec, d_w, n_f, nx, word, rings_alone)
                         job = sm.prepare(spec, state, arrays, scalars, 2,
                                          d_w=d_w, n_f=n_f, fused=True)
                         what = f"{spec.name} {dt} nx={nx} d_w={d_w} n_f={n_f}"
@@ -545,7 +841,7 @@ def check_fit_twin(dev) -> dict:
                                                  f"fit, the kernel {cfg or err}")
                             counts["e_smem"] += 1
                         elif cfg is None:
-                            check(twin.per_sm == 0,
+                            check(twin.per_sm == 0 and "(-4)" in err,
                                   f"{what}: twin {twin}, kernel {err}")
                             counts["per_sm_0_refused"] += 1
                             refusals.add(err)
@@ -554,6 +850,11 @@ def check_fit_twin(dev) -> dict:
                             want = {k: getattr(twin, k) for k in keys}
                             check(got == want, f"{what}: kernel {got} != "
                                                f"twin {want}")
+                            check(cfg["static_smem"]
+                                  == models.MWD_STATIC_SMEM,
+                                  f"{what}: the kernel counts "
+                                  f"{cfg['static_smem']} static bytes, the "
+                                  f"twin {models.MWD_STATIC_SMEM}")
                             counts["per_sm_0_equal" if twin.per_sm == 0
                                    else "equal"] += 1
                     if all(t is None for t in twins):
@@ -630,7 +931,7 @@ def phase_tune(dev) -> dict:
                 "op": name, "plan": tune.plan_name(plan),
                 "model_ms": pred.t_total * 1e3 if pred else None,
                 "model_terms_ms": {k: getattr(pred, f"t_{k}") * 1e3 for k in
-                                   ("bytes", "flops", "barrier", "launch")}
+                                   ("bytes", "flops", "phase", "launch")}
                 if pred else None,
                 "measured_ms": (lups / score / 1e6
                                 if math.isfinite(score) else None),
@@ -779,6 +1080,9 @@ def phase_main_path(tally: Tally, dev, ptxas: dict) -> dict:
         log("main " + json.dumps(row))
         del state, coeffs, arrays
         torch.cuda.empty_cache()
+    log("F2 tuned plan's ops.mwd over dw8.nf2.fused's, in turns: "
+        + json.dumps({n: {"plan": r["plan"], "ratio": r["tuned_vs_dw8nf2"]}
+                      for n, r in rows.items()}))
     log(f"phase 3 main path: {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -1159,6 +1463,83 @@ def phase_baselines_main(tally: Tally, dev,
     return rows, launches, library
 
 
+SWEEP_SIZES = (128, 256, 384, 512, 768)
+
+
+def phase_sweep(dev) -> dict:
+    """The grid-size sweep through its entry point: run_sweep over the four
+    paper ops at SWEEP_SIZES^3, fused, 8 steps, f32, into a temporary
+    results directory, plans resolved through the run's own registry (the
+    tune phase's measured entries at 512^3, the calibrated model
+    elsewhere); a second run_sweep must measure nothing. Beside every
+    point, ops.spatial (K2) at the same grid by CUDA events (a `sweep_point`
+    line); each point's ops.mwd against ops.naive at the smallest size; the
+    fit_ecm summary."""
+    import torch
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sweep
+    t0 = time.perf_counter()
+    grids = sweep.ladder(SWEEP_SIZES)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    try:
+        path = os.path.join(out_dir, "sweep.json")
+        first = sweep.run_sweep(list(st.SPECS.values()), grids,
+                                n_steps=MAIN_STEPS, results_path=path,
+                                verbose=False, device=dev.type)
+        check(first["n_measured"] == len(grids) * len(st.SPECS),
+              f"the sweep measured {first['n_measured']} points")
+        again = sweep.run_sweep(list(st.SPECS.values()), grids,
+                                n_steps=MAIN_STEPS, results_path=path,
+                                verbose=False, device=dev.type)
+        check(again["n_measured"] == 0 and again["n_skipped"]
+              == first["n_measured"],
+              f"the second run_sweep measured {again['n_measured']}")
+        check(os.path.exists(first.get("calibration_path", "")),
+              "the sweep saved no ECM calibration")
+        points = first["points"]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rows = []
+    for name, spec in st.SPECS.items():
+        for grid in grids:
+            p = next(v for v in points.values() if v["stencil"] == name
+                     and tuple(v["grid"]) == grid)
+            state, coeffs = st.random_problem(spec, grid, seed=0, device=dev)
+            if grid == grids[0]:
+                pl = p["plan"]
+                got = ops.mwd(spec, state, coeffs, MAIN_STEPS, d_w=pl["d_w"],
+                              n_f=pl["n_f"], fused=pl["fused"])
+                naive = ops.naive(spec, state, coeffs, MAIN_STEPS)
+                err = max(max_err(a, b) for a, b in zip(got, naive))
+                atol, rtol = spec.tolerance("f32")
+                check(err <= atol + rtol * max(float(naive[0].abs().max()),
+                                               1.0),
+                      f"sweep {name} {grid}: ops.mwd vs naive err {err:.3g}")
+                del got, naive
+            ops.spatial(spec, state, coeffs, MAIN_STEPS)        # warm-up
+            k2_ms = cuda_ms(lambda: ops.spatial(spec, state, coeffs,
+                                                MAIN_STEPS), 3)
+            m = p["measured"]
+            row = {"op": name, "grid": list(grid),
+                   "plan": f"dw{p['plan']['d_w']}.nf{p['plan']['n_f']}",
+                   "plan_source": p["plan_source"],
+                   "ops_mwd_ms": m["t_s"] * 1e3,
+                   "k1_ms": m["k1_t_s"] * 1e3,
+                   "k1_model_ms": p["model"]["k1"]["t_s"] * 1e3,
+                   "k2_ms": k2_ms, "k1_over_k2": m["k1_t_s"] * 1e3 / k2_ms,
+                   "glups": m["glups"], "b_per_lup": p["traffic"]
+                   ["b_per_lup"], "device": p["device"]}
+            rows.append(row)
+            log("sweep_point " + json.dumps(row))
+            del state, coeffs
+            torch.cuda.empty_cache()
+    summary = sweep.calibration_summary(points.values())
+    log(f"sweep fit_ecm: {summary}")
+    log(f"phase 6 sweep: {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "fit_ecm": summary}
+
+
 def time_kernels() -> None:
     """K1, K2 and K3 per paper op at 512^3 x 8, as one JSON line.
 
@@ -1186,6 +1567,7 @@ def time_kernels() -> None:
         del state, coeffs, arrays
         torch.cuda.empty_cache()
     print("kernel_ms " + json.dumps(out), flush=True)
+    print("k1_points " + json.dumps(k1_calibration_points(dev)), flush=True)
 
 
 def sweep_fused() -> None:
@@ -1356,7 +1738,8 @@ def compare(other: Path) -> None:
     Order: other, this, this, other; each in its own process, which builds
     its own checkout's kernels.
     """
-    runs = []
+    from repro_torch.core import models
+    runs, k1_points = [], {"other": [], "this": []}
     for root, side in ((other, "other"), (ROOT, "this"), (ROOT, "this"),
                        (other, "other")):
         proc = subprocess.run(
@@ -1369,6 +1752,9 @@ def compare(other: Path) -> None:
                 if ln.startswith("kernel_ms ")][-1]
         runs.append((side, json.loads(line[len("kernel_ms "):])))
         log(f"compare {side} {root}: {json.dumps(runs[-1][1])}")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("k1_points ")][-1]
+        k1_points[side] += json.loads(line[len("k1_points "):])
     for kernel, times in runs[0][1].items():
         for name in times:
             other_ms = [r[kernel][name] for side, r in runs
@@ -1377,6 +1763,69 @@ def compare(other: Path) -> None:
             log(f"compare {kernel} {name}: other {other_ms} this {this_ms} "
                 f"speedup {min(other_ms) / max(this_ms):.3f}-"
                 f"{max(other_ms) / min(this_ms):.3f}x")
+    # K1's phase costs fitted to each tree's K1 times (this tree's model
+    # counts the phases of both: K1's loop is the one both run)
+    for side, points in k1_points.items():
+        rep = models.k1_residuals(k1_fit_points(points))
+        log(f"compare phase fit {side}: " + json.dumps({
+            "points": rep["n"], "costs_s": rep["calibration"]["costs_s"],
+            "max_abs_rel_err": rep["max_abs_rel_err"],
+            "mean_abs_rel_err": rep["mean_abs_rel_err"]}))
+
+
+def calibrate(dest: Path) -> None:
+    """The measurements behind the spec's energy constants and K1 phase
+    costs: the energy phase, the fit twin, and K1 at every fused plan it
+    launches up to d_w 16 and the per-row plans of CALIBRATION_PLANS, at
+    256^3 and 512^3, written to `dest`/calibration.json with the
+    calibrated spec beside it (`dest`/h100-sxm.json)."""
+    import torch
+    from repro_torch.core import models, specs
+    from repro_torch.core import stencils as st
+    dev = torch.device("cuda", 0)
+    phase_setup()
+    from repro_torch.core import autotune
+    out = {"energy": phase_energy(dev, Nvml(dev)),
+           "fit_twin": check_fit_twin(dev)}
+    t0 = time.perf_counter()
+    # every fused plan K1 launches at 256 columns up to d_w 16, and the
+    # per-row twins of CALIBRATION_PLANS
+    wide = {}
+    for r in CALIBRATION_PLANS:
+        spec = next(s for s in st.SPECS.values() if s.radius == r)
+        wide[r] = tuple((p.d_w, p.n_f, True) for p in autotune._fitting_plans(
+            spec, 256, chip(), d_w_cap=16) if p.fused) + tuple(
+            q for q in CALIBRATION_PLANS[r] if not q[2])
+    out["k1"] = k1_calibration_points(dev, wide, sizes=(256, 512))
+    log(f"k1 calibration points: {len(out['k1'])} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for p in out["k1"]:
+        log("k1_point " + json.dumps(p))
+    # the spec with the measured constants: K1's phase costs by
+    # models.fit_k1 over these points, the energy phase's three constants,
+    # each to four significant digits
+    fit = models.fit_k1(k1_fit_points(out["k1"]))
+    measured = {**fit.costs_s, **{f: out["energy"]["measured"][f] for f in (
+        "static_power_w", "joules_per_flop", "joules_per_hbm_byte")}}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    spec_file = ROOT / "src" / "repro_torch" / "specs" / "h100-sxm.json"
+    raw = json.loads(spec_file.read_text())
+    raw.update({f: float(f"{v:.4g}") for f, v in measured.items()})
+    raw["source"] = raw["source"].split(CALIBRATED_BY)[0].rstrip() + (
+        f" {CALIBRATED_BY} on {card}: K1's phase costs by models.fit_k1 over "
+        f"{fit.n_points} K1 times (max |residual| {fit.max_rel_err:.0%}); "
+        f"the energy constants through NVML (idle, a device copy_, an f32 "
+        f"GEMM).")
+    specs.validate_spec_dict(raw)
+    out["fit_k1"] = dataclasses.asdict(fit)
+    out["spec"] = raw
+    dest.mkdir(parents=True, exist_ok=True)
+    (dest / "calibration.json").write_text(json.dumps(out, indent=1))
+    (dest / "h100-sxm.json").write_text(json.dumps(raw, indent=2) + "\n")
+    log("calibrated_spec " + json.dumps(raw))
 
 
 def main() -> int:
@@ -1386,9 +1835,11 @@ def main() -> int:
         root = Path(args[1]).resolve()
     elif args[:1] == ["--compare"] and len(args) == 2:
         pass
+    elif args[:1] == ["--calibrate"] and len(args) == 2:
+        pass
     elif args and args not in (["--sweep-k3"], ["--sweep-k2"]):
         print("usage: chip_smoke.py [--compare OTHER_CHECKOUT | --sweep-k3 "
-              "| --sweep-k2]", file=sys.stderr)
+              "| --sweep-k2 | --calibrate OUT_DIR]", file=sys.stderr)
         return 2
     if not (root / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1413,6 +1864,9 @@ def main() -> int:
     if args == ["--sweep-k2"]:
         sweep_sweep()
         return 0
+    if args[:1] == ["--calibrate"]:
+        calibrate(Path(args[1]).resolve())
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1423,15 +1877,18 @@ def main() -> int:
     os.environ["REPRO_TORCH_PLAN_REGISTRY"] = os.path.join(plans, "plans.json")
     try:
         ptxas = phase_setup()
-        phase_spec(dev)
+        phase_spec(dev, ptxas)
+        phase_energy(dev, Nvml(dev))
         tally = Tally()
         phase_kernel_checks(tally, dev)
+        phase_calibration(dev)
         phase_tune(dev)
         rows = phase_main_path(tally, dev, ptxas)
         served = phase_serving(tally, dev)
         phase_baselines_small(tally, dev)
         base, base_launches, library = phase_baselines_main(tally, dev,
                                                             ptxas)
+        phase_sweep(dev)
     finally:
         shutil.rmtree(plans, ignore_errors=True)
     k = rows[SERVE_OP]

@@ -1,21 +1,28 @@
-"""Auto-tuner (paper Sec. 4.2.2, Fig. 7): model-pruned hill climbing.
+"""Auto-tuner (paper Sec. 4.2.2, Fig. 7): model-seeded hill climbing.
 
-The port of `repro.core.autotune`. Flow, as the reference's:
+The port of `repro.core.autotune`. Flow:
 
   1. enumerate thread-group sizes tg_x that divide the devices along x
      (the port runs one card, so only tg_x = 1 scores: a multi-card K1
      waits for the distributed port);
-  2. for each, hill-climb over (D_w, N_F, fused) from the widest D_w whose
-     rings fit K1's shared memory (`models.smem_fits`, the twin of the
-     kernel's own choice);
-  3. score with an injected measure() callback — `measure_score` times the
-     real `ops.mwd` call on the card — or, by default, the K1 time model
-     (`model_score`, from `models.k1_predict`).
+  2. for each, seed at the model's best plan over every plan that fits:
+     D_w in steps of 2R up to the widest D_w whose rings fit K1's shared
+     memory (`models.smem_fits`, the twin of the kernel's own choice),
+     every N_F dividing it, fused and per-row (`_model_seed`);
+  3. hill-climb from the seed over the reference's neighbours of
+     (D_w, N_F, fused), scoring with an injected measure() callback —
+     `measure_score` times the real `ops.mwd` call on the card — or, by
+     default, the K1 time model (`model_score`, from `models.k1_predict`).
 
 The default `MWDPlan()` is always evaluated first, so a measured winner is
-never slower than the untuned baseline. Measured searches use the model
-twice: a free hill-climb positions the seed, and candidates predicted at
-less than `prune_ratio` of the best prediction are not measured.
+never slower than the untuned baseline; candidates predicted at less than
+`prune_ratio` of the best prediction are not measured. The seed departs
+from the reference, which starts at the widest D_w that fits and climbs
+under the model from there: on the H100 the widest diamonds leave one CTA
+per SM, and the model-only climb from them stopped in a local optimum the
+measured climb could not leave (ROADMAP F2). Scoring every plan that fits
+is cheap under the calibrated model, so the climb starts at its global
+best.
 """
 
 from __future__ import annotations
@@ -176,7 +183,8 @@ def measure_score(spec: StencilSpec, grid_shape, word_bytes: int = 4,
     """Measured scorer: wall-clock GLUP/s of the real `ops.mwd` call.
 
     The paper's Fig. 7 measurement step: the candidate runs as the actual
-    K1 advance on problems from `make_problem(..., device=device)`, timed
+    K1 advance on problems from `random_problem(..., device=device)`
+    (`make_problem`'s distribution drawn on the device), timed
     as the median of `reps` calls after `warmup`. Plans the kernel refuses
     (geometry, shared memory) score -inf without being run. `batch` > 1
     times one `ops.mwd_batched` call over `batch` problems.
@@ -184,29 +192,49 @@ def measure_score(spec: StencilSpec, grid_shape, word_bytes: int = 4,
     The callable counts what it ran in its `measurements` attribute, which
     is how `launch.tune` proves a registry hit measured nothing.
     """
-    from repro_torch.core import stencils as st
+    return _MeasuredScore(spec, tuple(grid_shape), word_bytes,
+                          chip or devspecs.current_spec(), n_steps, reps,
+                          warmup, seed, batch, dtype, device)
 
-    chip = chip or devspecs.current_spec()
-    nz, ny, nx = grid_shape
-    problems: list = []
 
-    def score(plan: MWDPlan) -> float:
+@dataclasses.dataclass
+class _MeasuredScore:
+    """`measure_score`'s callable: it holds its problems (made at the first
+    measurement) and its count, and nothing refers back to it, so the
+    problems go when the search drops it."""
+
+    spec: StencilSpec
+    grid_shape: tuple
+    word_bytes: int
+    chip: devspecs.DeviceSpec
+    n_steps: int
+    reps: int
+    warmup: int
+    seed: int
+    batch: int
+    dtype: object
+    device: object
+    measurements: int = 0
+    problems: tuple | None = None
+
+    def __call__(self, plan: MWDPlan) -> float:
+        from repro_torch.core import stencils as st
+
+        spec, (nz, ny, nx) = self.spec, self.grid_shape
         if (not _plan_valid(spec, plan) or plan.tg_x != 1
                 or not models.smem_fits(spec, plan.d_w, plan.n_f, nx,
-                                        word_bytes, chip)):
+                                        self.word_bytes, self.chip)):
             return -math.inf
-        if not problems:
-            probs = [st.make_problem(spec, (nz, ny, nx), dtype=dtype,
-                                     seed=seed + i, device=device)
-                     for i in range(batch)]
-            problems.extend(([p[0] for p in probs], [p[1] for p in probs]))
-        t = time_mwd_launch(spec, problems[0], problems[1], n_steps, plan,
-                            reps=reps, warmup=warmup)
-        score.measurements += 1
-        return nz * ny * nx * n_steps * batch / t / 1e9
-
-    score.measurements = 0
-    return score
+        if self.problems is None:
+            probs = [st.random_problem(spec, self.grid_shape,
+                                       dtype=self.dtype, seed=self.seed + i,
+                                       device=self.device)
+                     for i in range(self.batch)]
+            self.problems = ([p[0] for p in probs], [p[1] for p in probs])
+        t = time_mwd_launch(spec, *self.problems, self.n_steps, plan,
+                            reps=self.reps, warmup=self.warmup)
+        self.measurements += 1
+        return nz * ny * nx * self.n_steps * self.batch / t / 1e9
 
 
 def _neighbors(plan: MWDPlan, radius: int,
@@ -224,42 +252,39 @@ def _neighbors(plan: MWDPlan, radius: int,
     return cands
 
 
-def _seed_d_w(spec: StencilSpec, nx: int, chip: devspecs.DeviceSpec,
-              d_w_cap: int | None = None, word_bytes: int = 4) -> int:
-    """Largest D_w whose rings fit K1 at n_f = 1 — the search's start.
-
-    Stops at the first width that does not fit (wider ones only grow).
-    """
+def _fitting_plans(spec: StencilSpec, nx: int, chip: devspecs.DeviceSpec,
+                   d_w_cap: int | None = None, word_bytes: int = 4,
+                   tg_x: int = 1) -> list[MWDPlan]:
+    """Every plan K1 launches on grids `nx` wide: D_w in steps of 2R from
+    2R up to the widest whose rings fit at N_F = 1 (or `d_w_cap`), each N_F
+    dividing D_w that fits, fused then per-row."""
     step = 2 * spec.radius
     cap = 4096 if d_w_cap is None else max(step, (d_w_cap // step) * step)
+    plans = []
     d_w = step
-    while d_w + step <= cap and models.smem_fits(spec, d_w + step, 1, nx,
-                                                 word_bytes, chip):
+    while d_w <= cap and models.smem_fits(spec, d_w, 1, nx, word_bytes,
+                                          chip):
+        for n_f in range(1, d_w + 1):
+            if d_w % n_f == 0 and models.smem_fits(spec, d_w, n_f, nx,
+                                                   word_bytes, chip):
+                plans += [MWDPlan(d_w=d_w, n_f=n_f, tg_x=tg_x, fused=fused)
+                          for fused in (True, False)]
         d_w += step
-    return d_w
+    return plans
 
 
-def _analytic_climb(analytic: Callable[[MWDPlan], float], seed: MWDPlan,
-                    radius: int, d_w_cap: int | None = None,
-                    budget: int = 128) -> tuple[MWDPlan, float]:
-    """Free hill-climb under the model only; returns (plan, score)."""
-    scored: dict[MWDPlan, float] = {}
-
-    def ev(plan: MWDPlan) -> float:
-        if plan not in scored and len(scored) < budget:
-            scored[plan] = analytic(plan)
-        return scored.get(plan, -math.inf)
-
-    cur, cur_score = seed, ev(seed)
-    while True:
-        improved = False
-        for cand in _neighbors(cur, radius, d_w_cap):
-            s = ev(cand)
-            if s > cur_score:
-                cur, cur_score, improved = cand, s, True
-        if not improved:
-            break
-    return cur, cur_score
+def _model_seed(analytic: Callable[[MWDPlan], float], spec: StencilSpec,
+                nx: int, chip: devspecs.DeviceSpec,
+                d_w_cap: int | None = None, word_bytes: int = 4,
+                tg_x: int = 1) -> MWDPlan:
+    """The climb's start: the best plan under `analytic` over
+    `_fitting_plans` (the first of equals), or the narrowest diamond where
+    none fits."""
+    plans = _fitting_plans(spec, nx, chip, d_w_cap, word_bytes, tg_x)
+    if not plans:
+        return MWDPlan(d_w=2 * spec.radius, n_f=1, tg_x=tg_x)
+    scores = [analytic(p) for p in plans]
+    return plans[scores.index(max(scores))]
 
 
 def autotune(spec: StencilSpec, grid_shape, devices_x: int = 1,
@@ -268,14 +293,15 @@ def autotune(spec: StencilSpec, grid_shape, devices_x: int = 1,
              max_evals: int = 64, d_w_cap: int | None = None,
              batch: int = 1, prune_ratio: float = 0.25,
              n_steps: int = MODEL_STEPS) -> TuneResult:
-    """Model-pruned local search for the best MWD plan (paper Fig. 7).
+    """Model-seeded local search for the best MWD plan (paper Fig. 7).
 
     `measure` scores candidates: `model_score` (the default) or
     `measure_score` (wall-clock on the card). The default `MWDPlan()` is
-    evaluated first. With an injected `measure`, a free hill-climb under
-    the model positions each thread group's seed, and candidates whose
-    model score is below ``prune_ratio`` times the best model score seen
-    score -inf without being measured (``prune_ratio=0`` measures all).
+    evaluated first. Each thread group's climb starts at the model's best
+    plan over every plan that fits (`_model_seed`); with an injected
+    `measure`, candidates whose model score is below ``prune_ratio`` times
+    the best model score seen score -inf without being measured
+    (``prune_ratio=0`` measures all).
     `d_w_cap` bounds the diamond width; `max_evals` the plans scored.
     `batch` parameterizes the default model only; `n_steps` is the advance
     the model prices.
@@ -309,10 +335,8 @@ def autotune(spec: StencilSpec, grid_shape, devices_x: int = 1,
 
     tg_sizes = [d for d in range(1, devices_x + 1) if devices_x % d == 0]
     for tg in tg_sizes:
-        seed = MWDPlan(d_w=_seed_d_w(spec, nx // tg, chip, d_w_cap,
-                                     word_bytes), n_f=1, tg_x=tg)
-        if is_measured:
-            seed, _ = _analytic_climb(analytic, seed, spec.radius, d_w_cap)
+        seed = _model_seed(analytic, spec, nx // tg, chip, d_w_cap,
+                           word_bytes, tg)
         cur, cur_score = seed, eval_plan(seed)
         while True:
             improved = False

@@ -368,24 +368,43 @@ def make_problem(op: StencilOp, shape, dtype=None, seed: int = 0,
     Reproduces the reference's numpy draw order (cur, prev if 2nd order,
     then the array streams) and rounding, so a seed gives the same numbers
     in both packages. Scalars come back as a tuple of Python floats holding
-    the dtype-rounded values. Array streams are drawn one slab at a time
-    (the same stream of draws) so a production grid never holds more than
-    one float64 slab on the host.
+    the dtype-rounded values. The draws run on the host (tens of seconds a
+    grid at 768^3); `random_problem` draws the same distribution on the
+    device.
     """
     dt = precision.parse_dtype(dtype)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    nz, ny, nx = shape
+    return _assemble(op, lambda: _from_f64(
+        rng.standard_normal(tuple(shape)), dt, dev), dt, dev)
 
-    def grid():
-        return _from_f64(rng.standard_normal((nz, ny, nx)), dt, dev)
 
+def random_problem(op: StencilOp, shape, dtype=None, seed: int = 0,
+                   device="cuda"):
+    """A problem of `make_problem`'s distribution and layout, drawn on
+    `device` by torch's generator: standard-normal grids in the stream
+    dtype (drawn in float32, or float64 for f64), array streams times
+    `coeff_scale`, `make_problem`'s scalars. Not the reference's numbers;
+    fast at production sizes, for timing (the tuner, the sweep)."""
+    dt = precision.parse_dtype(dtype)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    draw = torch.float64 if dt == torch.float64 else torch.float32
+    return _assemble(op, lambda: torch.randn(
+        tuple(shape), generator=gen, dtype=draw, device=dev).to(dt), dt, dev)
+
+
+def _assemble(op: StencilOp, grid, dt, dev):
+    """cur, prev if 2nd order, then the array streams, each one `grid()`
+    draw in that order; the scaled streams and the dtype-rounded scalars
+    packed as `join_coeffs` packs them."""
     cur = grid()
     prev = grid() if op.time_order == 2 else cur
     arrays = None
     if op.n_coeff_arrays:
-        arrays = torch.empty((op.n_coeff_arrays, nz, ny, nx), dtype=dt,
-                             device=dev)
+        arrays = torch.empty((op.n_coeff_arrays,) + tuple(cur.shape),
+                             dtype=dt, device=dev)
         for a in range(op.n_coeff_arrays):
             arrays[a] = grid()
         scale = _from_f64(np.asarray(op.coeff_scale, np.float64), dt, "cpu")

@@ -11,10 +11,14 @@ terms do not apply:
 * ECM      — {T_compute || T_smem || T_hbm} with a launch-latency floor.
 * Roofline — compute / memory / latency terms; no collective term yet.
 * K1 model — `k1_predict`: the schedule's bytes over the HBM rate, the
-             flops over the f32 peak, the cluster barriers each CTA passes
-             times the waves of resident clusters, and one launch per
-             diamond row. The tuner scores plans with it
-             (`core.autotune.model_score`).
+             flops over the f32 peak, the barrier-ended phases each CTA
+             passes times the waves of resident clusters at the costs
+             `fit_k1` measures, and one launch per diamond row. The tuner
+             scores plans with it (`core.autotune.model_score`).
+* Calibration — `fit_ecm` / `model_residuals` (the effective ECM
+             constants of a sweep), `fit_k1` / `k1_residuals` (K1's phase
+             costs), `energy` (Fig. 19), and the per-spec artifact
+             (`save_calibration` / `load_calibration`).
 
 Every function takes the machine model as a `core.specs.DeviceSpec`
 (``chip=None`` resolves the process default). The traffic bounds of K2 and
@@ -29,7 +33,8 @@ import dataclasses
 import math
 
 from repro_torch.core import specs as devspecs
-from repro_torch.core.mwd import barrier_schedule, k1_geometry
+from repro_torch.core.mwd import (barrier_schedule, k1_geometry,
+                                  phase_schedule)
 from repro_torch.core.precision import DEFAULT_WORD_BYTES
 from repro_torch.core.stencils import StencilSpec
 from repro_torch.core.tiling import wavefront_width
@@ -266,6 +271,221 @@ def roofline(flops_per_device: float, bytes_per_device: float,
 
 
 # ---------------------------------------------------------------------------
+# Calibration / validation (paper Sec. 7-8: confront model with measurement)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EcmCalibration:
+    """Per-machine effective ECM constants fitted from measured sweep points.
+
+    The a-priori model is parameterized by the declarative device spec; the
+    card actually measured realizes different effective throughputs. The
+    paper's Sec. 7 validation therefore *fits* the phenomenological
+    constants to the sweep — the shape of the model (work terms plus a
+    fixed dispatch) is the claim under test, the constants are per-machine:
+
+        t(F, B_hbm) = F / flops_per_s + B_hbm / hbm_bytes_per_s + t_dispatch_s
+
+    An additive combination (no overlap) is the conservative ECM
+    composition; on machines that do overlap, the fit absorbs the overlap
+    into the effective rates. Rates can be ``math.inf`` when the fit finds
+    a term contributes nothing (its coefficient went to zero).
+    """
+
+    flops_per_s: float         # effective compute throughput (FLOP/s)
+    hbm_bytes_per_s: float     # effective memory throughput (B/s)
+    t_dispatch_s: float        # fixed per-launch overhead (s)
+    n_points: int              # sweep points the fit consumed
+    max_rel_err: float         # worst |pred - meas| / meas over the fit set
+    spec: str = ""             # device-spec name the fit was taken under
+
+    def predict_s(self, flops: float, hbm_bytes: float) -> float:
+        """Calibrated runtime (s) of a launch doing `flops` and `hbm_bytes`."""
+        t = self.t_dispatch_s
+        if self.flops_per_s != math.inf:
+            t += flops / self.flops_per_s
+        if self.hbm_bytes_per_s != math.inf:
+            t += hbm_bytes / self.hbm_bytes_per_s
+        return t
+
+
+def _nonneg_lstsq(design, target):
+    """Least squares with every coefficient >= 0: a coefficient the
+    unconstrained solution drives negative is clamped to zero (its term is
+    not observable in the points) and the rest are re-fitted, at most once
+    per coefficient."""
+    import numpy as np
+
+    n = design.shape[1]
+    active = list(range(n))
+    coef = np.zeros(n)
+    for _ in range(n):
+        sol, *_ = np.linalg.lstsq(design[:, active], target, rcond=None)
+        coef = np.zeros(n)
+        coef[active] = sol
+        neg = [i for i in active if coef[i] < 0.0]
+        if not neg:
+            break
+        coef[neg] = 0.0
+        active = [i for i in active if i not in neg]
+        if not active:
+            break
+    return [max(float(x), 0.0) for x in coef]
+
+
+def fit_ecm(points, spec: str | None = None) -> EcmCalibration:
+    """Least-squares fit of the ECM constants from measured sweep points.
+
+    `points` is an iterable of ``(flops, hbm_bytes, measured_s)`` triples
+    (one per measured launch, e.g. from `repro_torch.launch.sweep`). Solves
+    ``t = a*F + b*B + c`` for non-negative ``a, b, c``; a coefficient the
+    unconstrained solution drives negative is clamped to zero and the
+    remaining terms are re-fitted. Raises ValueError on an empty point
+    set; a single point degenerates to a pure-dispatch fit. `spec` names
+    the device spec the measurements were taken under (default: the
+    process default spec).
+    """
+    import numpy as np
+
+    pts = [(float(f), float(b), float(t)) for f, b, t in points]
+    if not pts:
+        raise ValueError("fit_ecm needs at least one (flops, bytes, t) point")
+    a, b, c = _nonneg_lstsq(np.array([[f, b, 1.0] for f, b, _ in pts]),
+                            np.array([t for _, _, t in pts]))
+    calib = EcmCalibration(
+        flops_per_s=(1.0 / a) if a > 0.0 else math.inf,
+        hbm_bytes_per_s=(1.0 / b) if b > 0.0 else math.inf,
+        t_dispatch_s=c,
+        n_points=len(pts),
+        max_rel_err=0.0,
+        spec=spec if spec is not None else devspecs.current_spec().name,
+    )
+    worst = 0.0
+    for f, bb, t in pts:
+        if t > 0.0:
+            worst = max(worst, abs(calib.predict_s(f, bb) - t) / t)
+    return dataclasses.replace(calib, max_rel_err=worst)
+
+
+def _residual_report(pts, predict, calibration: dict) -> dict:
+    per_point, rels = [], []
+    for p in pts:
+        pred = predict(p)
+        meas = float(p["measured_s"])
+        rel = (pred - meas) / meas if meas > 0.0 else 0.0
+        entry = {"key": p.get("key", ""), "measured_s": meas,
+                 "calibrated_s": pred, "rel_err": rel}
+        if "model_s" in p:
+            entry["model_s"] = float(p["model_s"])
+        per_point.append(entry)
+        rels.append(rel)
+    return {
+        "n": len(pts),
+        "calibration": calibration,
+        "mean_abs_rel_err": (sum(abs(r) for r in rels) / len(rels)
+                             if rels else 0.0),
+        "max_abs_rel_err": max((abs(r) for r in rels), default=0.0),
+        "bias": (sum(rels) / len(rels)) if rels else 0.0,
+        "per_point": per_point,
+    }
+
+
+def model_residuals(points, calibration: EcmCalibration | None = None) -> dict:
+    """Model-vs-measured residual report over sweep points (Sec. 7 analog).
+
+    `points` is an iterable of dicts with keys ``flops``, ``hbm_bytes``,
+    ``measured_s`` and optionally ``key`` (a label) and ``model_s`` (the
+    a-priori prediction). When `calibration` is None it is fitted from the
+    points themselves (`fit_ecm`).
+
+    Returns ``{"n", "calibration", "mean_abs_rel_err", "max_abs_rel_err",
+    "bias", "per_point"}`` where residuals are calibrated-vs-measured
+    relative errors ``(pred - meas) / meas``, `bias` is their mean
+    (signed), and each per-point entry carries ``{key, measured_s,
+    calibrated_s, rel_err[, model_s]}``.
+    """
+    pts = list(points)
+    if calibration is None:
+        calibration = fit_ecm(
+            (p["flops"], p["hbm_bytes"], p["measured_s"]) for p in pts)
+    return _residual_report(
+        pts, lambda p: calibration.predict_s(p["flops"], p["hbm_bytes"]),
+        dataclasses.asdict(calibration))
+
+
+# ---------------------------------------------------------------------------
+# Energy model (Fig. 19 analog)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EnergyEstimate:
+    """Energy split of one run: incremental core + HBM plus static draw."""
+
+    core_j: float
+    hbm_j: float
+    static_j: float
+
+    @property
+    def total_j(self) -> float:
+        """Total energy in joules."""
+        return self.core_j + self.hbm_j + self.static_j
+
+
+def energy(flops: float, hbm_bytes: float, runtime_s: float,
+           chip: devspecs.DeviceSpec | None = None) -> EnergyEstimate:
+    """Fig. 19 energy model: E = P_static*T + e_flop*F + e_byte*B_hbm, with
+    the spec's constants (measured on the card by ``chip_smoke.py``)."""
+    chip = chip or devspecs.current_spec()
+    return EnergyEstimate(
+        core_j=chip.joules_per_flop * flops,
+        hbm_j=chip.joules_per_hbm_byte * hbm_bytes,
+        static_j=chip.static_power_w * runtime_s,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Per-spec calibration artifacts
+# ---------------------------------------------------------------------------
+
+def calibration_path(results_dir: str, spec_name: str) -> str:
+    """Canonical artifact path for a spec's calibration: ``ecm-<spec>.json``."""
+    import os
+    return os.path.join(results_dir, f"ecm-{spec_name}.json")
+
+
+def save_calibration(calib: EcmCalibration, results_dir: str) -> str:
+    """Persist a fitted calibration as the per-spec artifact; returns path.
+
+    The artifact is keyed by the calibration's recorded spec name so fits
+    taken under different machine models never clobber each other.
+    """
+    import json
+    import os
+    if not calib.spec:
+        raise ValueError("calibration has no spec name; fit with "
+                         "fit_ecm(points, spec=...)")
+    os.makedirs(results_dir, exist_ok=True)
+    path = calibration_path(results_dir, calib.spec)
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(calib), f, indent=1, sort_keys=True)
+        f.write("\n")
+    return path
+
+
+def load_calibration(results_dir: str,
+                     spec_name: str) -> EcmCalibration | None:
+    """Load the persisted calibration for `spec_name`, or None if absent."""
+    import json
+    import os
+    path = calibration_path(results_dir, spec_name)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        raw = json.load(f)
+    return EcmCalibration(**raw)
+
+
+# ---------------------------------------------------------------------------
 # K1's shared-memory fit: the twin of choose() and smem_bytes() in mwd.cu
 # ---------------------------------------------------------------------------
 
@@ -275,6 +495,11 @@ MWD_MAX_T = 64          # in-tile updates per pass the kernel takes
 # stencil_cell.cuh, 2600 bytes at 128 taps and 64 groups) plus 2048 for
 # its other tables and the runtime's reserve
 MWD_BLOCK_OVERHEAD = 2600 + 2048
+# choose() in mwd.cu: the static shared memory of every mwd_row_kernel
+# instance as the runtime counts it (cudaFuncGetAttributes), which the
+# opt-in limit holds beside the rings: sop (sizeof(Op), 2600), span
+# (2 * MWD_MAX_T ints, 512) and xchg (8); `kernel_config` reports it
+MWD_STATIC_SMEM = 2600 + 512 + 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,7 +534,8 @@ def mwd_smem_plan(op: StencilSpec, d_w: int, n_f: int, nx: int,
     The Python twin of ``choose()`` and ``smem_bytes()`` in
     ``csrc/mwd.cu``, at the default interior (x width ``nx - 2R``). None
     where the kernel refuses with E_SMEM (no cluster of at most
-    ``chip.max_cluster`` CTAs holds the rings) or where the plan is not a
+    ``chip.max_cluster`` CTAs holds the rings beside the block's static
+    shared memory, `MWD_STATIC_SMEM`) or where the plan is not a
     K1 plan (2R or n_f not dividing d_w, more than `MWD_MAX_T` updates a
     pass).
     """
@@ -345,10 +571,10 @@ def mwd_smem_plan(op: StencilSpec, d_w: int, n_f: int, nx: int,
             break
         plain = smem(slab, False)
         staged = smem(slab, True) if n_arr else -1
-        stage = (0 <= staged <= chip.smem_block_bytes
-                 and per_sm(staged) >= per_sm(plain))
+        limit = chip.smem_block_bytes - MWD_STATIC_SMEM
+        stage = 0 <= staged <= limit and per_sm(staged) >= per_sm(plain)
         b = staged if stage else plain
-        if b > chip.smem_block_bytes:
+        if b > limit:
             continue
         return SmemPlan(cluster=cl, slab=slab, stage=int(stage),
                         threads=256 if per_sm(b) >= 2 else 512,
@@ -386,51 +612,107 @@ def mwd_schedule_bytes(op: StencilSpec, grid_shape, d_w: int, n_rows: int,
     return grids * cells * word
 
 
+# K1's measured costs (the spec's fields), one per kind of phase work
+# `phase_schedule` counts: a phase ended by a cluster barrier, a phase
+# ended by a block barrier, and the loads of the rows a phase's busiest
+# warp updates (a row of cells reads every tap and every coefficient stream)
+K1_COSTS = {"cluster": "k1_phase_s", "cta": "k1_cta_phase_s",
+            "row_loads": "k1_row_load_s"}
+MWD_CELLS = 2           # cells per lane and row in mwd.cu (32 columns apart)
+
+
 @dataclasses.dataclass(frozen=True)
 class K1Prediction:
     """The K1 model's terms for one advance (seconds, and what they count).
 
-    `t_total` is ``max(t_bytes, t_flops) + t_barrier + t_launch``: bytes
-    and flops overlap, a CTA at a cluster barrier streams nothing, and the
-    rows run one launch after another.
+    `t_total` is ``max(t_bytes, t_flops) + t_phase + t_launch``: bytes and
+    flops overlap, the barrier-ended phases of the wavefront are the chain
+    every CTA walks, and the rows run one launch after another. `phases`
+    holds the counts the phase term prices (`K1_COSTS`), each on the
+    critical path: per row, the most any CTA of the row passes, times the
+    waves of resident clusters.
     """
 
     t_bytes: float
     t_flops: float
-    t_barrier: float
+    t_phase: float
     t_launch: float
     hbm_bytes: float
     flops: float
-    barriers: int          # barrier-ended phases on the critical path
+    phases: dict           # {"cluster", "cta", "row_loads"}, critical path
     launches: int
     lups: float
     smem: SmemPlan | None
 
     @property
+    def t_fixed(self) -> float:
+        """The terms the phase costs are fitted beside (`fit_k1`)."""
+        return max(self.t_bytes, self.t_flops) + self.t_launch
+
+    @property
     def t_total(self) -> float:
         """Predicted time of the advance."""
-        return max(self.t_bytes, self.t_flops) + self.t_barrier + self.t_launch
+        return self.t_fixed + self.t_phase
 
     @property
     def dominant(self) -> str:
-        """The largest term: "bytes", "flops", "barrier" or "launch"."""
+        """The largest term: "bytes", "flops", "phase" or "launch"."""
         terms = {"bytes": self.t_bytes, "flops": self.t_flops,
-                 "barrier": self.t_barrier, "launch": self.t_launch}
+                 "phase": self.t_phase, "launch": self.t_launch}
         return max(terms, key=terms.get)
 
 
-def k1_waves(smem: SmemPlan, exchange: bool, tiles: int,
-             chip: devspecs.DeviceSpec) -> int:
-    """Waves of resident clusters one row of `tiles` tiles takes.
+# registers per thread of each mwd_row_kernel instance, by (word size,
+# coefficients staged, hoisted coefficient groups): ptxas -v of csrc/mwd.cu
+# for sm_90a, which chip_smoke.py phase 1 prints and checks for f32 and f64
+# (the 2-byte words take the most of their four instances)
+MWD_REGISTERS = {(4, 0, 0): 64, (4, 0, 8): 64, (4, 0, 16): 112,
+                 (4, 1, 0): 64, (4, 1, 8): 116, (4, 1, 16): 128,
+                 (8, 0, 0): 64, (8, 0, 8): 128, (8, 0, 16): 128,
+                 (8, 1, 0): 64, (8, 1, 8): 128, (8, 1, 16): 128,
+                 (2, 0, 0): 64, (2, 0, 8): 64, (2, 0, 16): 128,
+                 (2, 1, 0): 64, (2, 1, 8): 118, (2, 1, 16): 128}
 
-    With halo exchange a tile's CTAs run as one cluster, else as single
-    CTAs; the card holds ``n_sm * per_sm`` CTAs (the occupancy API's count
-    of resident clusters may be lower, as clusters keep to a GPC).
+
+def mwd_hoist(op: StencilSpec) -> int:
+    """Hoisted coefficient groups of K1's instance for `op` (plan_launch in
+    mwd.cu: the fewest of 0, 8 or 16 that cover its array groups)."""
+    n = sum(coeff.kind == "array" for coeff, _ in op.groups)
+    return 0 if n == 0 else 8 if n <= 8 else 16
+
+
+def k1_resident(op: StencilSpec, smem: SmemPlan, exchange: bool,
+                word: int = DEFAULT_WORD_BYTES,
+                chip: devspecs.DeviceSpec | None = None) -> int:
+    """Clusters (single CTAs without halo exchange) the card holds at once.
+
+    CTAs per SM: the fewest that shared memory (`SmemPlan.per_sm`), the
+    SM's threads and its registers (`MWD_REGISTERS`) allow. A cluster keeps
+    to one GPC: each of the spec's ``n_gpc`` holds ``n_sm // n_gpc`` SMs'
+    worth of CTAs, so large clusters fit fewer than the SM count says.
     """
-    ctas = chip.n_sm * smem.per_sm
-    if exchange:
-        return -(-tiles // max(1, ctas // smem.cluster))
-    return -(-tiles * smem.cluster // ctas)
+    chip = chip or devspecs.current_spec()
+    regs = MWD_REGISTERS.get((word, smem.stage, mwd_hoist(op)), 128)
+    per_sm = min(smem.per_sm, chip.threads_sm // smem.threads,
+                 chip.regs_sm // (smem.threads * regs))
+    if not exchange:
+        return max(1, chip.n_sm * per_sm)
+    per_gpc = (chip.n_sm // chip.n_gpc) * per_sm // smem.cluster
+    return max(1, chip.n_gpc * per_gpc)
+
+
+def k1_waves(resident: int, exchange: bool, tiles: int,
+             smem: SmemPlan) -> int:
+    """Waves one row of `tiles` tiles takes with `resident` clusters (or
+    single CTAs, without halo exchange: a tile's `cluster` CTAs) at once
+    (`k1_resident`)."""
+    units = tiles if exchange else tiles * smem.cluster
+    return -(-units // resident)
+
+
+def k1_phase_cost(phases: dict, chip: devspecs.DeviceSpec) -> float:
+    """Seconds of K1's phase term: each count times its measured cost."""
+    return sum(phases[k] * getattr(chip, f) for k, f in K1_COSTS.items())
 
 
 def k1_predict(op: StencilSpec, grid_shape, d_w: int, n_f: int,
@@ -441,10 +723,14 @@ def k1_predict(op: StencilSpec, grid_shape, d_w: int, n_f: int,
 
     Bytes: `mwd_schedule_bytes`; the per-row mode also copies both padded
     grids before every row and runs every tile, the inactive ones too.
-    Flops: ``flops_per_lup * LUPs`` over the f32 peak. Barriers: per row,
-    the most cluster barriers a CTA passes (`core.mwd.barrier_schedule`)
-    times the waves of resident clusters (`k1_waves`), times
-    ``chip.cluster_barrier_s``. Launches: one per diamond row, times
+    Flops: ``flops_per_lup * LUPs`` over the f32 peak. Phases: per row, the
+    most barrier-ended phases any CTA passes (`core.mwd.phase_schedule`:
+    ended by a cluster barrier, by a block barrier, and the rows of
+    updates on each phase's busiest warp times the loads of a row's cells,
+    one per tap and coefficient stream), times the waves of resident
+    clusters (`k1_resident`, `k1_waves`), each priced at the spec's
+    measured cost
+    (`K1_COSTS`, fitted by `fit_k1`). Launches: one per diamond row, times
     ``chip.launch_s``. Raises ValueError where `mwd_smem_plan` finds no
     fit; the host side of `ops.mwd` (padding, cropping) is not modeled.
     """
@@ -460,14 +746,19 @@ def k1_predict(op: StencilSpec, grid_shape, d_w: int, n_f: int,
     flops = op.flops_per_lup * lups
     n_rows = comp.n_rows
     hbm = mwd_schedule_bytes(op, grid_shape, d_w, n_rows, word)
-    barriers = 0
+    phases = {k: 0 for k in K1_COSTS}
     if n_rows:
-        push, per_cta = barrier_schedule(geo)
-        exchange = bool(push.any())
+        cells = -(-smem.slab // (32 * MWD_CELLS))
+        cluster, cta, rows = phase_schedule(geo, smem.threads // 32, cells)
+        counts = {"cluster": cluster, "cta": cta,
+                  "row_loads": rows * (len(op.taps) + op.n_coeff_arrays)}
+        exchange = bool(barrier_schedule(geo)[0].any())
+        resident = k1_resident(op, smem, exchange, word, chip)
         for i in range(n_rows):
             tiles = int(comp.active[i].sum()) if fused else comp.n_tiles
-            barriers += (k1_waves(smem, exchange, tiles, chip)
-                         * int(per_cta[i].max()))
+            waves = k1_waves(resident, exchange, tiles, smem)
+            for k, c in counts.items():
+                phases[k] += waves * int(c[i].max())
         if not fused:
             hbm *= comp.n_rows * comp.n_tiles / max(comp.n_active, 1)
             padded = ((geo.n_j * n_f) * (ny + 2 * geo.pads[1])
@@ -475,9 +766,77 @@ def k1_predict(op: StencilSpec, grid_shape, d_w: int, n_f: int,
             hbm += n_rows * 2 * 2 * padded * word     # clones, read + write
     return K1Prediction(
         t_bytes=hbm / chip.hbm_bw, t_flops=flops / chip.peak_flops_f32,
-        t_barrier=barriers * chip.cluster_barrier_s,
+        t_phase=k1_phase_cost(phases, chip),
         t_launch=n_rows * chip.launch_s, hbm_bytes=hbm, flops=flops,
-        barriers=barriers, launches=n_rows, lups=lups, smem=smem)
+        phases=phases, launches=n_rows, lups=lups, smem=smem)
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Calibration:
+    """K1's phase costs fitted from measured K1 times (`fit_k1`).
+
+    `costs_s` maps each spec field of `K1_COSTS` to its fitted seconds (0
+    where the points cannot see the term: the clamp of `fit_ecm`);
+    `max_rel_err` is the worst |predicted - measured| / measured over the
+    fit set.
+    """
+
+    costs_s: dict
+    n_points: int
+    max_rel_err: float
+
+    def predict_s(self, point: dict) -> float:
+        """K1 seconds of a `k1_fit_point` under these costs."""
+        return point["fixed_s"] + sum(
+            point["phases"][k] * self.costs_s[f] for k, f in K1_COSTS.items())
+
+
+def k1_fit_point(key: str, terms, measured_s: float | None = None) -> dict:
+    """One `fit_k1` input from a K1 model's terms: a `K1Prediction`, or the
+    ``model.k1`` record of a sweep point (`launch.sweep.k1_terms`)."""
+    if isinstance(terms, K1Prediction):
+        fixed, phases, model = terms.t_fixed, terms.phases, terms.t_total
+    else:
+        fixed = terms["t_s"] - terms["t_phase"]
+        phases, model = terms["phases"], terms["t_s"]
+    return {"key": key, "fixed_s": fixed, "phases": dict(phases),
+            "model_s": model, "measured_s": measured_s}
+
+
+def fit_k1(points) -> K1Calibration:
+    """Least-squares fit of K1's phase costs from measured K1 times.
+
+    `points` are `k1_fit_point` dicts: the model's fixed terms (bytes or
+    flops, and launches), the phase counts times waves on the critical
+    path, and K1's measured seconds (CUDA events). Solves ``measured -
+    fixed = sum(cost_k * phases_k)`` for non-negative costs, clamping and
+    re-fitting as `fit_ecm` does. Raises ValueError on an empty set.
+    """
+    import numpy as np
+
+    pts = list(points)
+    if not pts:
+        raise ValueError("fit_k1 needs at least one measured point")
+    design = np.array([[float(p["phases"][k]) for k in K1_COSTS]
+                       for p in pts])
+    target = np.array([float(p["measured_s"]) - p["fixed_s"] for p in pts])
+    coef = _nonneg_lstsq(design, target)
+    calib = K1Calibration(costs_s=dict(zip(K1_COSTS.values(), coef)),
+                          n_points=len(pts), max_rel_err=0.0)
+    worst = max((abs(calib.predict_s(p) - p["measured_s"]) / p["measured_s"]
+                 for p in pts if p["measured_s"] > 0), default=0.0)
+    return dataclasses.replace(calib, max_rel_err=worst)
+
+
+def k1_residuals(points, calibration: K1Calibration | None = None) -> dict:
+    """`model_residuals` for K1's phase model: fitted (or given) costs
+    against the measured K1 times, each point beside the spec's own
+    prediction (``model_s``)."""
+    pts = list(points)
+    if calibration is None:
+        calibration = fit_k1(pts)
+    return _residual_report(pts, calibration.predict_s,
+                            dataclasses.asdict(calibration))
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ kernel computed from shapes alone: the launcher, the machine model
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -154,6 +155,20 @@ class K1Geometry:
     fused: bool
 
 
+@functools.lru_cache(maxsize=64)
+def _compiled(d_w: int, radius: int, n_steps: int, y_lo: int,
+              y_hi: int) -> tiling.CompiledSchedule:
+    """The compiled schedule tables, shared read-only by every plan that
+    differs only in N_F, mode or grid depth (the model scores many)."""
+    comp = tiling.compile_schedule(
+        tiling.make_diamond_schedule(d_w, radius, n_steps, y_lo, y_hi))
+    for field in dataclasses.fields(comp):
+        arr = getattr(comp, field.name)
+        if isinstance(arr, np.ndarray):
+            arr.setflags(write=False)
+    return comp
+
+
 def k1_geometry(radius: int, grid_shape, d_w: int, n_f: int, n_steps: int,
                 *, fused: bool = True, interior=None,
                 y_domain=None) -> K1Geometry:
@@ -171,8 +186,7 @@ def k1_geometry(radius: int, grid_shape, d_w: int, n_f: int, n_steps: int,
                          f"n_f={n_f})")
     nz, ny, nx = grid_shape
     y_lo, y_hi = y_domain if y_domain is not None else (r, ny - r)
-    comp = tiling.compile_schedule(
-        tiling.make_diamond_schedule(d_w, r, n_steps, y_lo, y_hi))
+    comp = _compiled(d_w, r, n_steps, int(y_lo), int(y_hi))
     pz, py, px = r, 2 * d_w + r, r
     if interior is None:
         interior = (r, nz - r, r, ny - r, r, nx - r)
@@ -216,3 +230,50 @@ def barrier_schedule(geo: K1Geometry) -> tuple[np.ndarray, np.ndarray]:
     if geo.fused:
         barriers = barriers * comp.active.astype(bool)
     return push, barriers
+
+
+def phase_schedule(geo: K1Geometry, warps: int,
+                   cells_per_row: int = 1) -> tuple[np.ndarray, ...]:
+    """The barrier-ended phases one CTA of each tile passes in a row's
+    launch, split by the barrier that ends them, and their rows of work.
+
+    Returns ``(cluster, cta, work)``, each ``[row, tile]``, as K1's loop
+    runs (``csrc/mwd.cu``): the barrier after the first loads (a cluster
+    barrier where the launch trades halos); per wavefront step, every
+    update with cells and z rows but the last (a cluster barrier where it
+    pushes halos, `barrier_schedule`, else a block barrier), the step's
+    last update whatever its cells (a cluster barrier where the tile
+    pushes at all) and, from step ``d_w / n_f`` on, the block barrier after
+    the finished slab leaves. `work` counts the rows each warp updates in
+    those phases, summed: a phase of ``z`` rows by ``y`` rows takes
+    ``ceil(z*y / warps)`` rows on its busiest warp, each `cells_per_row`
+    passes of the lanes. Inactive tiles of a fused launch pass none.
+    """
+    comp, (_, py, _) = geo.comp, geo.pads
+    lo_z, hi_z, lo_y, hi_y, lo_x, hi_x = geo.bounds
+    push, _ = barrier_schedule(geo)
+    t_steps = comp.t_steps
+    y_rows = np.maximum(np.minimum(comp.y1 + py, hi_y)
+                        - np.maximum(comp.y0 + py, lo_y), 0)
+    y_rows = y_rows * (hi_x > lo_x)                      # (row, tile, tau)
+    zs = (np.arange(geo.n_j)[:, None] * geo.n_f
+          - (np.arange(t_steps)[None, :] + 1) * geo.radius)
+    z_rows = np.maximum(np.minimum(zs + geo.n_f, hi_z)
+                        - np.maximum(zs, lo_z), 0)        # (step, tau)
+    live = (y_rows[..., None, :] > 0) & (z_rows > 0)     # (row, tile, j, tau)
+    live[..., -1] = False                                 # counted apart
+    pushes = push[..., None, :]
+    cluster = (live & pushes).sum((-1, -2))
+    cta = (live & ~pushes).sum((-1, -2))
+    any_push = push.any(-1)
+    exchange = bool(push.any())
+    cluster = cluster + geo.n_j * any_push + exchange
+    cta = (cta + geo.n_j * ~any_push + (not exchange)
+           + max(0, geo.n_j - comp.d_w // geo.n_f))
+    rows = y_rows[..., None, :] * z_rows                  # (row, tile, j, tau)
+    work = (-(-rows // warps) * cells_per_row).sum((-1, -2))
+    if geo.fused:
+        active = comp.active.astype(bool)
+        cluster, cta, work = cluster * active, cta * active, work * active
+    return cluster, cta, work
+

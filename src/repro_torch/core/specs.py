@@ -10,8 +10,12 @@ The schema follows Hopper, not the TPU. Where the reference has one VMEM
 size and rate, a CUDA card has a per-block shared-memory limit, a per-SM
 pool, an L2 and SMs grouped into thread-block clusters; and two costs that
 bound K1 besides bytes are measured on the card: one kernel launch
-(`launch_s`) and one cluster barrier (`cluster_barrier_s`). The file's
-`source` string names where each figure comes from (a data sheet, or the
+(`launch_s`) and one cluster barrier (`cluster_barrier_s`); K1's time
+model prices its barrier-ended phases at costs fitted to measured K1 times
+(`k1_phase_s`, `k1_cta_phase_s`, `k1_row_load_s`: `models.fit_k1`). The
+energy model's constants (`static_power_w`, `joules_per_flop`,
+`joules_per_hbm_byte`), which no data sheet gives, are measured too. The
+file's `source` string names where each figure comes from (a data sheet, or the
 card's name and power limit as ``nvidia-smi`` reports them).
 
 Resolution (`get_spec`) accepts a committed spec name ("h100-sxm"), a path
@@ -55,9 +59,20 @@ class DeviceSpec:
     smem_block_bytes: int       # dynamic shared memory one block may opt into
     smem_sm_bytes: int          # shared memory of one SM
     n_sm: int                   # streaming multiprocessors
+    n_gpc: int                  # GPCs: a thread-block cluster keeps to one
+    threads_sm: int             # resident threads per SM
+    regs_sm: int                # 32-bit registers per SM
     max_cluster: int            # CTAs in the largest thread-block cluster
     launch_s: float             # one kernel launch, measured
     cluster_barrier_s: float    # one cluster barrier alone, measured
+    # K1's phase costs (`models.K1_COSTS`), fitted to measured K1 times
+    k1_phase_s: float           # a phase ended by a cluster barrier
+    k1_cta_phase_s: float       # a phase ended by a block barrier
+    k1_row_load_s: float        # per load of a row on a phase's busiest warp
+    # Energy model constants (Fig. 19 analog), measured on the card
+    static_power_w: float       # idle draw with a live context, W
+    joules_per_flop: float      # incremental f32 core energy
+    joules_per_hbm_byte: float  # incremental device-memory energy
 
     @property
     def latency_bytes(self) -> float:
@@ -84,9 +99,18 @@ _SCHEMA: dict[str, type] = {
     "smem_block_bytes": int,
     "smem_sm_bytes": int,
     "n_sm": int,
+    "n_gpc": int,
+    "threads_sm": int,
+    "regs_sm": int,
     "max_cluster": int,
     "launch_s": float,
     "cluster_barrier_s": float,
+    "k1_phase_s": float,
+    "k1_cta_phase_s": float,
+    "k1_row_load_s": float,
+    "static_power_w": float,
+    "joules_per_flop": float,
+    "joules_per_hbm_byte": float,
 }
 _STRINGS = ("name", "source")
 

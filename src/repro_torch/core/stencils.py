@@ -51,3 +51,12 @@ def make_problem(spec: StencilOp, shape, dtype=None, seed: int = 0,
                  device="cuda"):
     """Random initial state + coefficients for `spec` on grid `shape`."""
     return ir.make_problem(spec, shape, dtype=dtype, seed=seed, device=device)
+
+
+def random_problem(spec: StencilOp, shape, dtype=None, seed: int = 0,
+                   device="cuda"):
+    """`make_problem`'s distribution drawn on the device (`ir.random_problem`):
+    not the reference's numbers, for timing at production sizes."""
+    return ir.random_problem(spec, shape, dtype=dtype, seed=seed,
+                             device=device)
+

@@ -346,7 +346,7 @@ __global__ void cluster_probe_kernel(int iters) {
 // A launch configuration for one problem: cluster size, slab width,
 // whether the coefficients are staged, and the shared memory it takes.
 struct Plan {
-  int cluster, slab, stage, threads, smem, max_clusters, hoist;
+  int cluster, slab, stage, threads, smem, max_clusters, hoist, static_smem;
 };
 
 // The kernel instance for a plan: coefficients staged or not, and the
@@ -392,11 +392,14 @@ static int per_sm(long long bytes, int smem_sm) {
 // Slab width, cluster size, coefficient staging and block size from the
 // interior x width, the dtype and the op: aim for MWD_SLAB_TARGET columns
 // per CTA (a portable cluster at nx = 512), taking the smallest cluster
-// whose parity rings fit one block's shared memory; stage the coefficient
+// whose parity rings fit one block's shared memory beside the instance's
+// static shared memory (`static_bytes[stage]`, the runtime's own count:
+// the opt-in limit holds both); stage the coefficient
 // streams only where that keeps as many blocks per SM as reading them in
 // place (latency hides behind more resident blocks better than behind a
 // staged ring); 256 threads where two or more blocks share an SM, else 512.
-static int choose(Geo& g, int elem, int smem_max, int smem_sm, Plan& p) {
+static int choose(Geo& g, int elem, int smem_max, int smem_sm,
+                  const int static_bytes[2], Plan& p) {
   const int nxr = max(g.hi_x - g.lo_x, 0);
   const int c_min = max(1, (nxr + MWD_SLAB_TARGET - 1) / MWD_SLAB_TARGET);
   const int e = 16 / elem;            // slabs start 16-byte aligned
@@ -406,15 +409,16 @@ static int choose(Geo& g, int elem, int smem_max, int smem_sm, Plan& p) {
     if (cl > MWD_MAX_CLUSTER || (cl > 1 && slab < g.radius)) break;
     const long long plain = smem_bytes(g, slab, 0, elem);
     const long long staged = g.n_arrays ? smem_bytes(g, slab, 1, elem) : -1;
-    const int stage = staged >= 0 && staged <= smem_max
+    const int stage = staged >= 0 && staged + static_bytes[1] <= smem_max
         && per_sm(staged, smem_sm) >= per_sm(plain, smem_sm);
     const long long bytes = stage ? staged : plain;
-    if (bytes > smem_max) continue;
+    if (bytes + static_bytes[stage] > smem_max) continue;
     p.threads = per_sm(bytes, smem_sm) >= 2 ? 256 : 512;
     p.cluster = cl;
     p.slab = slab;
     p.stage = stage;
     p.smem = (int)smem_bytes(g, slab, stage, elem);   // sets g's rings
+    p.static_smem = static_bytes[stage];
     g.cluster = cl;
     g.slab = slab;
     return 0;
@@ -431,9 +435,17 @@ static int plan_launch(Geo& g, int device, Plan& p, void** fn) {
     err = cudaDeviceGetAttribute(
         &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
   if (err != cudaSuccess) return (int)err;
-  const int bad = choose(g, (int)sizeof(S), smem_max, smem_sm, p);
-  if (bad) return bad;
   p.hoist = g.n_array_groups == 0 ? 0 : g.n_array_groups <= 8 ? 8 : 16;
+  int static_bytes[2];
+  for (int stage = 0; stage < 2; ++stage) {
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel_for<S, A>(stage, p.hoist));
+    if (err != cudaSuccess) return (int)err;
+    static_bytes[stage] = (int)fa.sharedSizeBytes;
+  }
+  const int bad = choose(g, (int)sizeof(S), smem_max, smem_sm, static_bytes,
+                         p);
+  if (bad) return bad;
   void* kernel = kernel_for<S, A>(p.stage, p.hoist);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -586,9 +598,10 @@ int mwd_rows(int stream_type, int acc_type, void* buf_e, void* buf_o,
 }
 
 // The launch configuration mwd_rows would use for `geo`, without launching:
-// out[10] = cluster (CTAs per tile), slab, stage, threads, dynamic shared
+// out[11] = cluster (CTAs per tile), slab, stage, threads, dynamic shared
 // bytes per CTA, max active clusters, parity ring depth, coefficient ring
-// depth, hoisted coefficient groups, exchange (launched as clusters).
+// depth, hoisted coefficient groups, exchange (launched as clusters),
+// static shared bytes of the chosen instance.
 int mwd_config(int stream_type, int acc_type, const long long* geo,
                int device, int* out) {
   Geo g;
@@ -603,7 +616,7 @@ int mwd_config(int stream_type, int acc_type, const long long* geo,
    rc ? rc : (out[0] = p.cluster, out[1] = p.slab, out[2] = p.stage,        \
               out[3] = p.threads, out[4] = p.smem, out[5] = p.max_clusters, \
               out[6] = g.depth, out[7] = g.cdepth, out[8] = p.hoist,        \
-              out[9] = g.exchange, 0))
+              out[9] = g.exchange, out[10] = p.static_smem, 0))
   MWD_DISPATCH(MWD_PLAN)
 #undef MWD_PLAN
 }
@@ -644,7 +657,7 @@ const char* mwd_error_string(int code) {
     case E_CLUSTER:
       return "the thread-block cluster does not fit on the device";
     case E_SMEM:
-      return "no slab width fits the rings in one block's shared memory";
+      return "no slab width fits the rings beside the static shared memory";
   }
   return stencil_error_string(code);
 }

@@ -225,15 +225,18 @@ def kernel_config(job: Job) -> dict:
     shared memory per CTA), max_active_clusters, depth and cdepth (ring
     depths in z rows), hoist (coefficient groups whose loads are issued
     together), exchange (1: the CTAs of a tile run as a cluster and trade
-    halos; 0: no update needs a neighbour's halo, so they run alone).
+    halos; 0: no update needs a neighbour's halo, so they run alone),
+    static_smem (the chosen instance's static shared memory, which the
+    opt-in limit holds beside `smem_bytes`).
     """
     dev = check_kernel_inputs("MWD", job.bufs)
     lib = _mwd_lib()
-    out = np.zeros(10, np.int32)
+    out = np.zeros(11, np.int32)
     _check(lib, lib.mwd_config(*_type_codes(job), ptr(_geometry(job)),
                                dev.index, ptr(out)), "configuration")
     keys = ("cluster", "slab", "stage", "threads", "smem_bytes",
-            "max_active_clusters", "depth", "cdepth", "hoist", "exchange")
+            "max_active_clusters", "depth", "cdepth", "hoist", "exchange",
+            "static_smem")
     return dict(zip(keys, (int(v) for v in out)))
 
 

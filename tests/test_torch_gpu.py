@@ -423,6 +423,48 @@ def test_fit_twin_equals_kernel_config(cuda, name):
                 d_w += 2 * r
 
 
+# F3: plans whose rings fit the opt-in limit alone but not beside the
+# block's static shared memory; K1 once refused them at launch, and now
+# takes the next cluster size (op, dtype, columns, d_w, n_f)
+STATIC_SMEM_CASES = [("7pt-const", "f32", 40, 32, 1),
+                     ("7pt-var", "f32", 200, 32, 1),
+                     ("7pt-const", "f32", 512, 16, 4),
+                     ("25pt-var", "f32", 40, 32, 4),
+                     ("25pt-const", "f64", 512, 8, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dt,nx,d_w,n_f", STATIC_SMEM_CASES)
+def test_kernel_takes_plans_beside_its_static_shared_memory(cuda, name, dt,
+                                                            nx, d_w, n_f):
+    """K1 launches at the fit twin's plan (a larger cluster than the rings
+    alone would take) and equals its plain version bitwise."""
+    import dataclasses
+    from repro_torch.core import models, specs
+    spec = tst.SPECS[name]
+    word = 8 if dt == "f64" else 4
+    chip = specs.current_spec()
+    twin = models.mwd_smem_plan(spec, d_w, n_f, nx, word)
+    alone = models.mwd_smem_plan(spec, d_w, n_f, nx, word, dataclasses.replace(
+        chip, smem_block_bytes=chip.smem_block_bytes
+        + models.MWD_STATIC_SMEM))
+    assert twin.cluster > alone.cluster
+    state, coeffs = tst.make_problem(spec, (4 * spec.radius + 8, 24, nx),
+                                     dtype=dt, seed=5, device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    jobs = [tkern.prepare(spec, state, arrays, scalars, 4, d_w=d_w, n_f=n_f,
+                          fused=True) for _ in range(2)]
+    cfg = tkern.kernel_config(jobs[0])
+    assert (cfg["cluster"], cfg["slab"], cfg["smem_bytes"]) == (
+        twin.cluster, twin.slab, twin.smem_bytes)
+    assert cfg["static_smem"] == models.MWD_STATIC_SMEM
+    tkern.run_kernel(jobs[0])
+    tkern.run_plain(jobs[1])
+    torch.cuda.synchronize()
+    for a, b in zip(jobs[0].bufs, jobs[1].bufs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_measured_tune_one_on_a_small_grid(cuda, tmp_path, monkeypatch):
     """tune_one times whole ops.mwd calls on the card, persists the winner,

@@ -162,6 +162,31 @@ def test_smem_plan_hand_counts_from_mwd_cu():
         per_sm=1, depth=18, cdepth=10)
 
 
+def test_smem_plan_counts_the_static_shared_memory():
+    """F3: choose() holds the rings beside the instance's static shared
+    memory (3120 bytes) under the opt-in limit of 232,448. 7pt-const, f32,
+    40 columns, d_w 32, n_f 1: R 1, T 32, ahead 1, depth 35, wy 34, taps
+    round16(35*7*4) = 992; 38 interior columns. Two CTAs take slabs of 20
+    (wx 24) and rings of 992 + 2*35*34*24*4 = 229,472 bytes, which fit
+    232,448 alone but not beside 3120 (232,592): the kernel once refused
+    this plan at launch. Three CTAs take slabs of 16 (wx 20), 191,392."""
+    op = tst.SPECS["7pt-const"]
+    assert tmodels.MWD_STATIC_SMEM == 3120
+    plan = tmodels.mwd_smem_plan(op, 32, 1, 40, 4)
+    assert (plan.cluster, plan.slab, plan.smem_bytes) == (3, 16, 191392)
+    chip = tspecs.current_spec()
+    rings_alone = dataclasses.replace(
+        chip, smem_block_bytes=chip.smem_block_bytes + 3120)
+    old = tmodels.mwd_smem_plan(op, 32, 1, 40, 4, chip=rings_alone)
+    assert (old.cluster, old.slab, old.smem_bytes) == (2, 20, 229472)
+    # every plan the twin takes fits beside the static bytes
+    for nx in (40, 200, 512):
+        for d_w in range(2, 48, 2):
+            p = tmodels.mwd_smem_plan(op, d_w, 1, nx, 4)
+            assert p is None or (p.smem_bytes + tmodels.MWD_STATIC_SMEM
+                                 <= chip.smem_block_bytes)
+
+
 def test_smem_plan_refusals_and_fit_boundary():
     op = tst.SPECS["7pt-const"]
     chip = tspecs.current_spec()
@@ -252,17 +277,18 @@ def test_k1_model_terms():
     assert p.t_bytes == pytest.approx(p.hbm_bytes / chip.hbm_bw)
     assert p.t_flops == pytest.approx(op7.flops_per_lup * 64 ** 3 * 8
                                       / chip.peak_flops_f32)
-    assert p.barriers > 0 and p.t_barrier == pytest.approx(
-        p.barriers * chip.cluster_barrier_s)
+    assert p.phases["cluster"] > 0 and p.t_phase == pytest.approx(
+        tmodels.k1_phase_cost(p.phases, chip))
     assert p.t_total == pytest.approx(max(p.t_bytes, p.t_flops)
-                                      + p.t_barrier + p.t_launch)
+                                      + p.t_phase + p.t_launch)
     # fatter phases: fewer barriers
-    assert tmodels.k1_predict(op7, grid, 8, 4, 8).barriers < p.barriers
+    assert (tmodels.k1_predict(op7, grid, 8, 4, 8).phases["cluster"]
+            < p.phases["cluster"])
     # the per-row mode copies both grids per row: more bytes, same rest
     row = tmodels.k1_predict(op7, grid, 8, 2, 8, fused=False)
     assert row.hbm_bytes > p.hbm_bytes and row.launches == p.launches
-    # the 25-point ops at dw8 push no halo: no barrier term
-    assert tmodels.k1_predict(op25, grid, 8, 2, 8).barriers == 0
+    # the 25-point ops at dw8 push no halo: no cluster-barrier phase
+    assert tmodels.k1_predict(op25, grid, 8, 2, 8).phases["cluster"] == 0
     with pytest.raises(ValueError, match="no K1 launch"):
         tmodels.k1_predict(op7, (8, 8, 4096), 8, 2, 2,
                            chip=dataclasses.replace(chip, max_cluster=1))

@@ -70,6 +70,14 @@ def test_spec_dirs_are_the_ports_own():
     (lambda d: d.update(max_cluster=True), "number"),
     (lambda d: d.update(smem_block_bytes=1.5), "integer"),
     (lambda d: d.update(name=""), "name"),
+    # the energy model's and K1's measured constants: required, > 0
+    (lambda d: d.pop("static_power_w"), "missing"),
+    (lambda d: d.pop("joules_per_hbm_byte"), "missing"),
+    (lambda d: d.update(joules_per_flop=0.0), "> 0"),
+    (lambda d: d.update(joules_per_hbm_byte=-1e-11), "> 0"),
+    (lambda d: d.update(static_power_w=0), "> 0"),
+    (lambda d: d.pop("k1_phase_s"), "missing"),
+    (lambda d: d.update(k1_cta_phase_s=0.0), "> 0"),
 ])
 def test_schema_rejects(mutate, msg):
     raw = devspecs.get_spec("h100-sxm").to_dict()
