@@ -91,6 +91,24 @@ failure so the script exits non-zero:
    `sweep_point` line per point with ops.spatial (K2) timed beside it,
    ops.mwd against ops.naive at the smallest size, and the fit_ecm
    summary.
+7. the differentiable path (kernels.adjoint): 7a, K1 on the adjoint op
+   (ir.adjoint: negated taps, transported streams; 25 streams at the
+   25-point ops) of the four paper ops, aniso11 and tests/test_adjoint.py's
+   mixed op against its plain version at the mid-size grid, fused, per-row
+   and B=2, bitwise in f32, each launch's kernel_config equal to
+   models.mwd_smem_plan; 7b, ops.mwd_diff's gradients wrt cur, prev and the
+   streams against torch.autograd through ops.naive at 64^3 x 4 steps
+   within the reference's 8·(atol + rtol·max(|ref|, 1)), its forward (the
+   1st-order stacked one too) bitwise equal to ops.mwd; 7c, at 512^3 x 8
+   steps per paper op, ops.mwd_diff(plan="auto") (the forward plan phase
+   2b measured, the vjp plan from the model) forward and forward +
+   backward by CUDA events, the K1 launches of the first call, K1 alone on
+   one adjoint advance beside its bound and models.k1_predict, the peak
+   memory (25pt-const's flat between 8 and 32 steps), one forward +
+   backward under torch.profiler (K1's device time, the other kernels',
+   the device's idle share) (`diff` lines); 7d,
+   launch.fit.run_fit on 7pt-var at 512^3 (`fit` line) and
+   launch.fit.main's 10x gate at (8, 12, 10) (`fit_gate` line).
 
 Before the last line come one `baseline` JSON line per (op, method) and a
 JSON object with one entry per kernel; the last line is
@@ -479,11 +497,11 @@ def launch_us(dev, cluster: int = 8, threads: int = 256,
     return cuda_ms(burst, TIMING_REPS) * 1e3 / n
 
 
-def k1_ms(spec, state, arrays, scalars, kw) -> float:
+def k1_ms(spec, state, arrays, scalars, kw, n_steps=MAIN_STEPS) -> float:
     """K1 alone on one prepared job (median of TIMING_REPS, grids restored
     untimed between runs)."""
     from repro_torch.kernels import stencil_mwd as sm
-    job = sm.prepare(spec, state, arrays, scalars, MAIN_STEPS, **kw)
+    job = sm.prepare(spec, state, arrays, scalars, n_steps, **kw)
     saved = [b.clone() for b in job.bufs]
 
     def restore():
@@ -1540,6 +1558,323 @@ def phase_sweep(dev) -> dict:
     return {"rows": rows, "fit_ecm": summary}
 
 
+def mixed(ir):
+    """tests/test_adjoint.py's op: const and array taps in one 2nd-order
+    operator with a const time-recurrence scale."""
+    return ir.StencilOp(
+        "adj-mixed",
+        (ir.Tap(0, 0, 0, ir.const(1)),
+         ir.Tap(-1, 0, 0, ir.array(0)), ir.Tap(1, 0, 0, ir.array(0)),
+         ir.Tap(0, -1, 0, ir.array(1)), ir.Tap(0, 1, 0, ir.array(1)),
+         ir.Tap(0, 0, -1, ir.const(2)), ir.Tap(0, 0, 1, ir.const(2))),
+        time_order=2, scale=ir.const(0),
+        default_scalars=(0.21, -0.53, 0.11), coeff_scale=0.08)
+
+
+GRAD_GRID = (64, 64, 64)
+GRAD_STEPS = 4
+FLAT_STEPS = (8, 32)
+FIT_STEPS = 3
+TWIN_KEYS = ("cluster", "slab", "stage", "threads", "smem_bytes", "depth",
+             "cdepth")
+
+
+def twin_line(spec, cfg, d_w, n_f, nx) -> dict:
+    """A K1 launch's configuration beside the fit twin's, which must be
+    equal."""
+    from repro_torch.core import models
+    twin = models.mwd_smem_plan(spec, d_w, n_f, nx)
+    check(twin is not None, f"{spec.name}: the twin finds no fit at d_w="
+                            f"{d_w}, n_f={n_f}, nx={nx}")
+    got = {k: cfg[k] for k in TWIN_KEYS}
+    want = {k: getattr(twin, k) for k in TWIN_KEYS}
+    check(got == want, f"{spec.name} d_w={d_w} n_f={n_f}: kernel_config "
+                       f"{got} != twin {want}")
+    return dict(got, hoist=cfg["hoist"], exchange=cfg["exchange"])
+
+
+def check_adjoint_k1(tally: Tally, dev) -> None:
+    """7a: K1 on the adjoint op of each paper op, aniso11 and adj-mixed,
+    with the streams `map_coeffs` transports, against its plain version at
+    MID_GRID: fused, per-row and B=2, bitwise in f32; each launch's
+    kernel_config equal to models.mwd_smem_plan."""
+    import torch
+    from repro_torch.core import ir
+    from repro_torch.core import stencils as st
+    for spec in list(st.SPECS.values()) + [aniso11(ir), mixed(ir)]:
+        adj = ir.adjoint(spec)
+        d_w = 12 if spec.radius == 3 else 8
+        probs = [st.make_problem(spec, MID_GRID, seed=s, device=dev)
+                 for s in (11, 12)]
+        state, coeffs = probs[0]
+        arrays, scalars = ir.split_coeffs(spec, coeffs)
+        adj_arrays, adj_scalars = adj.map_coeffs(arrays, scalars)
+        cfgs = []
+        for fused in (True, False):
+            _, _, cfg = tally.kernel_vs_plain(
+                adj.op, state, adj_arrays, adj_scalars, MAIN_STEPS, d_w=d_w,
+                n_f=2, fused=fused)
+            cfgs.append(cfg)
+        bstate = tuple(torch.stack([p[0][i] for p in probs]) for i in (0, 1))
+        barr = None
+        if spec.n_coeff_arrays:
+            barr = torch.stack([ir.split_coeffs(spec, p[1])[0]
+                                for p in probs])
+        badj, _ = adj.map_coeffs(barr, scalars)
+        tally.kernel_vs_plain(adj.op, bstate, badj, adj_scalars, MAIN_STEPS,
+                              d_w=d_w, n_f=2, fused=True)
+        line = twin_line(adj.op, cfgs[0], d_w, 2, MID_GRID[2])
+        check(cfgs[1] == cfgs[0], f"{adj.op.name}: per-row config differs")
+        log(f"  adjoint {adj.op.name}: {adj.op.n_coeff_arrays} streams, "
+            f"{len(adj.op.groups)} groups, order {adj.op.time_order}, scale "
+            f"{adj.op.scale}; fused/per-row/B=2 bitwise vs plain; config = "
+            f"twin {json.dumps(line)}")
+
+
+def check_gradients(dev) -> None:
+    """7b: ops.mwd_diff's gradients wrt cur, prev and the streams against
+    torch.autograd through ops.naive at GRAD_GRID x GRAD_STEPS, within
+    8·(atol + rtol·max(|ref|, 1)) of op.tolerance("f32"); the forward
+    equals ops.mwd bitwise, the 1st-order stacked one too."""
+    import torch
+    from repro_torch.core import ir
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import ops
+    for spec in list(st.SPECS.values()) + [mixed(ir)]:
+        state, coeffs = st.make_problem(spec, GRAD_GRID, seed=3, device=dev)
+        arrays, scalars = ir.split_coeffs(spec, coeffs)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        w = torch.randn(GRAD_GRID, generator=gen, device=dev)
+        w2 = torch.randn(GRAD_GRID, generator=gen, device=dev)
+
+        def grads(runner, **kw):
+            args = [t.clone().requires_grad_() for t in (state[0], state[1])]
+            arr = (arrays.clone().requires_grad_() if arrays is not None
+                   else None)
+            out = runner(spec, tuple(args),
+                         ir.join_coeffs(spec, arr, scalars), GRAD_STEPS,
+                         **kw)
+            ins = args + ([arr] if arr is not None else [])
+            g = torch.autograd.grad((w * out[0]).sum() + (w2 * out[1]).sum(),
+                                    ins, allow_unused=True)
+            return out, [torch.zeros_like(x) if gi is None else gi
+                         for gi, x in zip(g, ins)]
+
+        kw = dict(d_w=8, n_f=2)
+        out, got = grads(ops.mwd_diff, **kw)
+        fused = ops.mwd(spec, state, coeffs, GRAD_STEPS, **kw)
+        check(all(same(a.detach(), b) for a, b in zip(out, fused)),
+              f"{spec.name}: mwd_diff's forward (stacked: "
+              f"{spec.time_order == 1 and spec.n_coeff_arrays > 0}) != "
+              f"ops.mwd")
+        _, want = grads(ops.naive)
+        atol, rtol = spec.tolerance("f32")
+        errs = {}
+        for name, a, b in zip(("cur", "prev", "arrays"), got, want):
+            mag = float(b.abs().max())
+            errs[name] = max_err(a, b)
+            check(errs[name] <= 8 * (atol + rtol * max(mag, 1.0)),
+                  f"{spec.name}/{name}: gradient err {errs[name]:.3g} vs "
+                  f"|ref| {mag:.3g}")
+        log(f"  gradcheck {spec.name} {GRAD_GRID} x {GRAD_STEPS}: "
+            f"{json.dumps(errs)} within 8·(atol + rtol·max(|ref|, 1)); "
+            f"forward bitwise vs ops.mwd")
+
+
+def diff_launches(spec, fwd, adj, n_steps) -> dict:
+    """K1 launches of one forward + backward of ops.mwd_diff, one a
+    diamond row: the forward (1-step advances where a 1st-order op stacks
+    its states), then per step the adjoint advance and, at 2nd order, the
+    reconstruction."""
+    from repro_torch.core.mwd import k1_geometry
+    rows = lambda p, n: k1_geometry(spec.radius, MAIN_GRID, p.d_w, p.n_f, n,
+                                    fused=p.fused).comp.n_rows
+    stacked = spec.time_order == 1 and spec.n_coeff_arrays > 0
+    return {"forward": (n_steps * rows(fwd, 1) if stacked
+                        else rows(fwd, n_steps)),
+            "adjoint": n_steps * rows(adj, 1),
+            "reconstruction": (n_steps * rows(fwd, 1)
+                               if spec.time_order == 2 else 0)}
+
+
+def diff_drive(spec, state, arrays, scalars, w, n_steps):
+    """One forward + backward of ops.mwd_diff(plan="auto") whose loss reads
+    the first output only (the second's cotangent is None), as the fit's;
+    returns the gradients."""
+    import torch
+    from repro_torch.core import ir
+    from repro_torch.kernels import ops
+    args = [t.clone().requires_grad_() for t in (state[0], state[1])]
+    arr = arrays.clone().requires_grad_() if arrays is not None else None
+    out = ops.mwd_diff(spec, tuple(args), ir.join_coeffs(spec, arr, scalars),
+                       n_steps, plan="auto")
+    ins = args + ([arr] if arr is not None else [])
+    return torch.autograd.grad((w * out[0]).sum(), ins, allow_unused=True)
+
+
+def peak_gb(fn) -> tuple[float, float]:
+    """(peak allocated GB during fn, that peak less what was allocated
+    before it)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 1e9, (peak - base) / 1e9
+
+
+def device_split(fn) -> dict:
+    """One call of `fn` under torch.profiler: the device time of K1's
+    kernels and of all other kernels (the plain-PyTorch terms), the wall
+    time, and the device's idle share of it. None where the profiler saw
+    no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    k1_ms = sum(e.time_range.elapsed_us() for e in kernels
+                if "mwd_row_kernel" in e.name) / 1e3
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"k1_device_ms": k1_ms, "other_device_ms": busy_ms - k1_ms,
+            "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms}
+
+
+def phase_differentiable(tally: Tally, dev) -> dict:
+    """Phase 7, the differentiable path: 7a, 7b, then at 512^3 x 8 steps per
+    paper op ops.mwd_diff(plan="auto") forward and forward + backward by
+    CUDA events, the K1 launches of one forward + backward (counted from
+    0 just before the first call and read just after, each one the count
+    of rows expected), K1 alone on one adjoint advance beside its bound
+    and the K1 model, the peak memory (25pt-const at 8 and 32 steps:
+    flat), the device-time split of one call (`device_split`), then
+    launch.fit.run_fit at 512^3 and the fit gate of launch.fit.main at
+    (8, 12, 10)."""
+    import torch
+    from repro_torch.core import ir, models, registry
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import adjoint, ops
+    from repro_torch.kernels import stencil_mwd as sm
+    from repro_torch.launch import fit
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    check_adjoint_k1(tally, dev)
+    check_gradients(dev)
+    log(f"  7a/7b: {time.perf_counter() - t0:.1f} s")
+    rows, launches = {}, 0
+    for name, spec in st.SPECS.items():
+        state, coeffs = st.random_problem(spec, MAIN_GRID, seed=0, device=dev)
+        arrays, scalars = ir.split_coeffs(spec, coeffs)
+        w = torch.randn(MAIN_GRID, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+        fwd, fsrc = registry.resolve_plan(spec, MAIN_GRID, word_bytes=4)
+        adj_plan, asrc = adjoint.resolve_adjoint_plan(spec, MAIN_GRID)
+        check(fsrc == "registry:measured",
+              f"{name}: the forward plan came from {fsrc}, not phase 2b")
+        sm.LAUNCHES.count = 0
+        grads = diff_drive(spec, state, arrays, scalars, w, MAIN_STEPS)
+        torch.cuda.synchronize()
+        n_call = sm.LAUNCHES.count
+        launches += n_call
+        check(all(g is None or bool(torch.isfinite(g).all()) for g in grads),
+              f"{name}: non-finite gradient at {MAIN_GRID}")
+        del grads
+        expect = diff_launches(spec, fwd, adj_plan, MAIN_STEPS)
+        check(n_call == sum(expect.values()),
+              f"{name}: {n_call} K1 launches in one forward + backward, "
+              f"expected {expect}")
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: ops.mwd_diff(
+                spec, state, coeffs, MAIN_STEPS, plan="auto"), 2)
+        both_ms = cuda_ms(lambda: diff_drive(spec, state, arrays, scalars, w,
+                                             MAIN_STEPS), 2)
+        peak, delta = peak_gb(lambda: diff_drive(spec, state, arrays,
+                                                 scalars, w, MAIN_STEPS))
+        split = device_split(lambda: diff_drive(spec, state, arrays, scalars,
+                                                w, MAIN_STEPS))
+        # K1 alone on one adjoint advance, beside its bound and the model
+        adj = ir.adjoint(spec)
+        adj_arrays, adj_scalars = adj.map_coeffs(arrays, scalars)
+        kw = dict(d_w=adj_plan.d_w, n_f=adj_plan.n_f, fused=adj_plan.fused)
+        adj_ms = k1_ms(adj.op, state, adj_arrays, adj_scalars, kw, 1)
+        cfg = twin_line(adj.op, sm.kernel_config(sm.prepare(
+            adj.op, state, adj_arrays, adj_scalars, 1, **kw)), adj_plan.d_w,
+            adj_plan.n_f, MAIN_GRID[2])
+        b_ms, b_by = bound(adj.op, MAIN_GRID, 1)
+        model_ms = models.k1_predict(adj.op, MAIN_GRID, adj_plan.d_w,
+                                     adj_plan.n_f, 1,
+                                     fused=adj_plan.fused).t_total * 1e3
+        del adj_arrays
+        row = {"op": name, "grid": list(MAIN_GRID), "steps": MAIN_STEPS,
+               "fwd_plan": f"dw{fwd.d_w}.nf{fwd.n_f}."
+                           f"{'fused' if fwd.fused else 'row'}",
+               "vjp_plan": f"dw{adj_plan.d_w}.nf{adj_plan.n_f}."
+                           f"{'fused' if adj_plan.fused else 'row'}",
+               "vjp_plan_source": asrc, "fwd_ms": fwd_ms,
+               "fwd_bwd_ms": both_ms, "bwd_over_fwd": both_ms / fwd_ms,
+               "k1_launches": n_call,
+               **{f"{k}_launches": v for k, v in expect.items()},
+               "adjoint_streams": adj.op.n_coeff_arrays,
+               "adjoint_k1_ms": adj_ms, "adjoint_bound_ms": b_ms,
+               "adjoint_bound_by": b_by, "adjoint_share": b_ms / adj_ms,
+               "adjoint_model_ms": model_ms, "adjoint_config": cfg,
+               "peak_gb": peak, "peak_over_start_gb": delta,
+               "profiled_fwd_bwd": split}
+        if spec.time_order == 2:
+            flat = {n: peak_gb(lambda n=n: diff_drive(
+                spec, state, arrays, scalars, w, n))[1] for n in FLAT_STEPS}
+            check(flat[FLAT_STEPS[1]] <= flat[FLAT_STEPS[0]] * 1.001,
+                  f"{name}: backward peak grows with the steps: {flat}")
+            row["peak_over_start_gb_by_steps"] = flat
+        rows[name] = row
+        log("diff " + json.dumps(row))
+        del state, coeffs, arrays, w
+        torch.cuda.empty_cache()
+    # 7d: the fit at full width, then the reference's CI gate on the card
+    spec = st.SPECS["7pt-var"]
+    reports = []
+    sm.LAUNCHES.count = 0
+    fit_peak = peak_gb(lambda: reports.append(fit.run_fit(
+        spec, MAIN_GRID, n_steps=MAIN_STEPS, windows=2, max_steps=FIT_STEPS,
+        plan="auto", telemetry="", device=dev, device_draws=True)))
+    launches += sm.LAUNCHES.count
+    rep = reports[0]
+    check(rep["loss"] < rep["loss0"] and math.isfinite(rep["loss"]),
+          f"fit at {MAIN_GRID}: loss {rep['loss0']} -> {rep['loss']}")
+    fit_row = {"op": spec.name, "grid": list(MAIN_GRID), "steps": MAIN_STEPS,
+               "windows": 2, "opt_steps": FIT_STEPS,
+               "s_per_step": rep["seconds"] / FIT_STEPS,
+               "loss0": rep["loss0"], "loss": rep["loss"],
+               "peak_gb": fit_peak[0], "peak_over_start_gb": fit_peak[1]}
+    rows["fit"] = fit_row
+    log("fit " + json.dumps(fit_row))
+    torch.cuda.empty_cache()
+    t_gate = time.perf_counter()
+    try:
+        gate = fit.main(["--gate", "10", "--max-steps", "40", "--grid",
+                         "8,12,10", "--telemetry", ""])
+    except SystemExit as e:
+        raise Failed(f"launch.fit.main's gate exited {e.code}") from e
+    log("fit_gate " + json.dumps({
+        "grid": [8, 12, 10], "steps": gate["steps"],
+        "loss0": gate["loss0"], "loss": gate["loss"],
+        "reduction": gate["reduction"],
+        "seconds": time.perf_counter() - t_gate}))
+    rows["launches"] = launches
+    log(f"phase 7 differentiable path: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def time_kernels() -> None:
     """K1, K2 and K3 per paper op at 512^3 x 8, as one JSON line.
 
@@ -1889,6 +2224,7 @@ def main() -> int:
         base, base_launches, library = phase_baselines_main(tally, dev,
                                                             ptxas)
         phase_sweep(dev)
+        diff = phase_differentiable(tally, dev)
     finally:
         shutil.rmtree(plans, ignore_errors=True)
     k = rows[SERVE_OP]
@@ -1896,7 +2232,7 @@ def main() -> int:
         "name": "mwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mwd.cu",
         "replaces": "src/repro/kernels/stencil_mwd.py:69",
-        "launches": served["k1_launches"],
+        "launches": served["k1_launches"] + diff["launches"],
         "max_abs_err": tally.max_abs_err["mwd"],
         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -209,6 +209,12 @@ class StencilOp:
         k = 4.0 * (len(self.taps) + (4 if self.time_order == 2 else 0))
         return (k * eps, k * eps)
 
+    def adjoint(self) -> "Adjoint":
+        """The adjoint operator of this op's sweep, derived structurally
+        (tap offsets negated, variable coefficients transported as rolled
+        streams); see `adjoint`. Cached per op."""
+        return adjoint(self)
+
     @property
     def fingerprint(self) -> str:
         """Stable hash of the operator semantics (taps, time order, scale)."""
@@ -284,6 +290,114 @@ def make_sweep(op: StencilOp):
 
 
 # ---------------------------------------------------------------------------
+# Structural adjoint: the transpose of the sweep is another StencilOp
+# ---------------------------------------------------------------------------
+#
+# The sweep is linear in the solution levels:
+#
+#   1st order:  out[i] = sum_t  c_t(i) * cur[i + off_t]
+#   2nd order:  out[i] = 2*cur[i] - prev[i] + s(i) * sum_t c_t(i)*cur[i+off_t]
+#
+# The cotangent flowing into cur[j] from output cell i = j - off_t is
+# weighted by c_t(i), the coefficient at the forward output cell. So the
+# adjoint is a stencil with taps at the negated offsets whose coefficients
+# are the same compile-time scalar where c_t is const and the 2nd-order
+# scale is const or absent, and otherwise a shifted copy of the forward
+# stream, c'_t[j] = w_t[j - off_t], with w_t the tap's array stream times
+# (when the scale is an array) the scale stream: one torch.roll per adjoint
+# slot. Wrapped values land only where the cotangent is zero (outside the
+# interior), so the roll is exact. The 2nd-order recurrence transposes to
+# itself over the adjoint taps, up to the sign of the previous level's
+# cotangent, which `kernels.adjoint` applies to the state.
+
+
+@dataclasses.dataclass(frozen=True)
+class AdjointSlot:
+    """Recipe for one adjoint coefficient stream (one forward tap).
+
+    ``stream[j] = roll(prod(arrays[k] for k) * prod(scalars[i] for i),
+    shift)``; `shift` is the forward tap offset (a roll by +off evaluates
+    at ``j - off``).
+    """
+
+    shift: tuple[int, int, int]
+    arrays: tuple[int, ...]         # forward array slots multiplied in
+    scalars: tuple[int, ...]        # forward const slots multiplied in
+
+
+@dataclasses.dataclass(frozen=True)
+class Adjoint:
+    """A derived adjoint operator plus its coefficient transport.
+
+    `op` is an ordinary `StencilOp`: it runs through K1 and keys plans like
+    any user operator (the gradient launches under the ``vjp`` variant).
+    `map_coeffs` turns the forward canonical coefficients into the
+    adjoint's.
+    """
+
+    op: StencilOp
+    slots: tuple[AdjointSlot, ...]
+    keep_scalars: bool              # adjoint reuses the forward scalar tuple
+
+    def map_coeffs(self, arrays, scalars):
+        """Forward canonical ``(arrays, scalars)`` -> the adjoint's.
+
+        `arrays` is the stacked forward stream ``(..., A, z, y, x)`` (leading
+        batch axes pass through), `scalars` a tuple of floats. Returns the
+        adjoint streams stacked on dim -4 (None without slots) and the
+        adjoint's scalar tuple.
+        """
+        adj_scalars = tuple(scalars) if self.keep_scalars else ()
+        if not self.slots:
+            return None, adj_scalars
+        streams = []
+        for slot in self.slots:
+            w = None
+            for k in slot.arrays:
+                a = arrays[..., k, :, :, :]
+                w = a if w is None else w * a
+            factor = 1.0
+            for i in slot.scalars:
+                factor = factor * float(scalars[i])
+            w = w * factor if factor != 1.0 else w
+            streams.append(torch.roll(w, shifts=slot.shift, dims=(-3, -2, -1)))
+        return torch.stack(streams, dim=-4), adj_scalars
+
+
+@functools.lru_cache(maxsize=None)
+def adjoint(op: StencilOp) -> Adjoint:
+    """Derive the adjoint of `op`'s sweep (see the comment above).
+
+    The adjoint op is named ``<name>.T`` (never registered); its structural
+    fingerprint, equal to the reference's, keys the gradient launches'
+    plans.
+    """
+    fold = op.scale is not None and op.scale.kind == "array"
+    taps: list[Tap] = []
+    slots: list[AdjointSlot] = []
+    keep_scalars = False
+    for t in op.taps:
+        off = (-t.dz, -t.dy, -t.dx)
+        if t.coeff.kind == "const" and not fold:
+            taps.append(Tap(*off, const(t.coeff.index)))
+            keep_scalars = True
+            continue
+        arrays = (t.coeff.index,) if t.coeff.kind == "array" else ()
+        consts = (t.coeff.index,) if t.coeff.kind == "const" else ()
+        if fold:
+            arrays += (op.scale.index,)
+        slots.append(AdjointSlot(t.offset, arrays, consts))
+        taps.append(Tap(*off, array(len(slots) - 1)))
+    scale = None
+    if op.time_order == 2 and not fold:
+        scale = op.scale                # a const scale carries over verbatim
+        keep_scalars = keep_scalars or scale is not None
+    adj_op = StencilOp(f"{op.name}.T", tuple(taps), time_order=op.time_order,
+                       scale=scale, coeff_scale=op.coeff_scale)
+    return Adjoint(op=adj_op, slots=tuple(slots), keep_scalars=keep_scalars)
+
+
+# ---------------------------------------------------------------------------
 # Coefficient packing: one canonical split everywhere
 # ---------------------------------------------------------------------------
 
@@ -349,7 +463,7 @@ _NUMPY = {torch.float32: np.float32, torch.float16: np.float16,
           torch.float64: np.float64}
 
 
-def _from_f64(x: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+def from_f64(x: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     """float64 numpy -> `dtype` tensor, rounded as the reference rounds.
 
     numpy rounds f64 -> f16/f32 once (as ``jnp.asarray`` does), while torch
@@ -375,7 +489,7 @@ def make_problem(op: StencilOp, shape, dtype=None, seed: int = 0,
     dt = precision.parse_dtype(dtype)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    return _assemble(op, lambda: _from_f64(
+    return _assemble(op, lambda: from_f64(
         rng.standard_normal(tuple(shape)), dt, dev), dt, dev)
 
 
@@ -407,12 +521,12 @@ def _assemble(op: StencilOp, grid, dt, dev):
                              dtype=dt, device=dev)
         for a in range(op.n_coeff_arrays):
             arrays[a] = grid()
-        scale = _from_f64(np.asarray(op.coeff_scale, np.float64), dt, "cpu")
+        scale = from_f64(np.asarray(op.coeff_scale, np.float64), dt, "cpu")
         arrays.mul_(scale)
     svals = op.default_scalars
     if svals is None:
         svals = tuple(0.1 / (j + 1) for j in range(op.n_scalars))
-    scalars = tuple(_from_f64(np.asarray(svals, np.float64), dt,
+    scalars = tuple(from_f64(np.asarray(svals, np.float64), dt,
                               "cpu").tolist())
     return (cur, prev), join_coeffs(op, arrays, scalars)
 

@@ -15,6 +15,9 @@ The four methods of the reference, with their kernels:
   ``t_block`` steps (`kernels.stencil_fused`, ``csrc/fused.cu``);
 * `mwd`: the paper's MWD advance, one K1 launch per diamond row
   (`kernels.stencil_mwd`, ``csrc/mwd.cu``).
+
+`mwd_diff` / `mwd_diff_batched` are `mwd` / `mwd_batched` with a
+structural backward pass (`kernels.adjoint`): K1 on the adjoint operator.
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ from repro_torch.core.mwd import MWDPlan
 from repro_torch.core.stencils import StencilSpec
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import stencil_fused, stencil_mwd, stencil_sweep
+from repro_torch.kernels.adjoint import mwd_diff, mwd_diff_batched  # noqa: F401
+# mwd_diff / mwd_diff_batched: forward-identical to mwd / mwd_batched with a
+# structural VJP whose backward runs K1 on the adjoint operator
+# (repro_torch.kernels.adjoint); `launch.fit` drives them.
 
 ref = _ref
 

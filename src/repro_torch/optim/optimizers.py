@@ -1,0 +1,127 @@
+"""AdamW on tensors, with the reference's arithmetic.
+
+The port of `repro.optim.optimizers` (`adafactor` and `make_optimizer`
+serve the LM substrate and are not ported). An `Optimizer` is a pair of
+functions ``(init, update)`` over a tensor or a dict, list or tuple of
+tensors, with state of the same structure, so a fit state round-trips
+through numpy unchanged. Updates run without autograd and compute what the
+reference computes: moments in float32, bias correction by ``b ** (step +
+1)``, ``weight_decay * p`` added to the update, and ``-lr_t * u`` cast back
+to the parameter dtype (which `torch.optim.AdamW` does not).
+
+Step counts and learning rates are 0-d float32 tensors on the host; a 0-d
+host tensor multiplies a CUDA tensor without a sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable
+    update: Callable   # (grads, state, params, step) -> (updates, new_state)
+
+
+def tree_map(fn, *trees):
+    """`fn` over the tensors of same-structured trees (a tensor, or a dict,
+    list or tuple of trees)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree, in `tree_map`'s order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of `tree`'s structure holding `leaves` in `tree_leaves`'
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def warmup_cosine(peak_lr: float, warmup: int = 100, total: int = 10000,
+                  floor: float = 0.1):
+    """Linear warmup to `peak_lr`, then a cosine down to ``floor *
+    peak_lr`` at `total`: ``lr(step) -> 0-d float32 tensor``."""
+    def lr(step):
+        step = _f32(step)
+        # warmup=0 means no warmup, not a division by zero
+        warm = peak_lr * (step + 1) / max(warmup, 1)
+        frac = torch.clamp((step - warmup) / max(total - warmup, 1), 0, 1)
+        cos = peak_lr * (floor + (1 - floor) * 0.5
+                         * (1 + torch.cos(math.pi * frac)))
+        return torch.where(step < warmup, warm, cos)
+    return lr
+
+
+@torch.no_grad()
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in float32."""
+    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    return torch.sqrt(sum(leaves))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale `grads` so their global norm is at most `max_norm`:
+    ``(clipped, norm before clipping)``."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return tree_map(lambda g: g * scale, grads), norm
+
+
+def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
+    """AdamW with decoupled weight decay; `lr` a float or ``lr(step)``."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device)
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        step_f = _f32(step) + 1.0
+        lr_t = lr_fn(step)
+
+        def upd(g, m, v, p):
+            g = g.float()
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            mhat = m / (1 - b1 ** step_f)
+            vhat = v / (1 - b2 ** step_f)
+            u = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()
+            return (-lr_t * u).to(p.dtype), m, v
+
+        out = [upd(*t) for t in zip(
+            tree_leaves(grads), tree_leaves(state["m"]),
+            tree_leaves(state["v"]), tree_leaves(params))]
+        unf = lambda i: tree_unflatten(grads, [o[i] for o in out])
+        return unf(0), {"m": unf(1), "v": unf(2)}
+
+    return Optimizer(init, update)
+
+
+@torch.no_grad()
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)

@@ -486,3 +486,85 @@ def test_measured_tune_one_on_a_small_grid(cuda, tmp_path, monkeypatch):
     assert_bitwise(tops.mwd(spec, state, coeffs, 4, plan="auto"),
                    tops.mwd(spec, state, coeffs, 4, d_w=plan.d_w,
                             n_f=plan.n_f, fused=plan.fused))
+
+
+def mixed(irmod):
+    """A 2nd-order op with const and array taps and a const scale (the
+    reference adjoint test's op)."""
+    return irmod.StencilOp(
+        "adj-mixed",
+        (irmod.Tap(0, 0, 0, irmod.const(1)),
+         irmod.Tap(-1, 0, 0, irmod.array(0)),
+         irmod.Tap(1, 0, 0, irmod.array(0)),
+         irmod.Tap(0, -1, 0, irmod.array(1)),
+         irmod.Tap(0, 1, 0, irmod.array(1)),
+         irmod.Tap(0, 0, -1, irmod.const(2)),
+         irmod.Tap(0, 0, 1, irmod.const(2))),
+        time_order=2, scale=irmod.const(0),
+        default_scalars=(0.21, -0.53, 0.11), coeff_scale=0.08)
+
+
+def _op(name):
+    return {"aniso11": aniso11, "adj-mixed": mixed}.get(
+        name, lambda _: tst.SPECS[name])(tir)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(tst.SPECS) + ["aniso11", "adj-mixed"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_kernel_on_the_adjoint_op_bitwise(cuda, name, fused):
+    """K1 on `ir.adjoint(op).op` with the transported streams: 25 array
+    groups at the 25-point ops (past the largest hoist, 16), 2nd order
+    without a scale at 25pt-const.T, negated asymmetric taps at aniso11 and
+    adj-mixed; the launch choice equals the fit twin's."""
+    from repro_torch.core import models
+    spec = _op(name)
+    adj = tir.adjoint(spec)
+    d_w = 12 if spec.radius == 3 else 8
+    state, coeffs = tst.make_problem(spec, (24, 40, 36), seed=4, device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    adj_arrays, adj_scalars = adj.map_coeffs(arrays, scalars)
+    job = tkern.prepare(adj.op, state, adj_arrays, adj_scalars, 4, d_w=d_w,
+                        n_f=2, fused=fused)
+    cfg = tkern.kernel_config(job)
+    twin = models.mwd_smem_plan(adj.op, d_w, 2, 36)
+    assert {k: cfg[k] for k in ("cluster", "slab", "stage", "threads",
+                                "smem_bytes")} == {
+        k: getattr(twin, k) for k in ("cluster", "slab", "stage", "threads",
+                                      "smem_bytes")}
+    got, want = _kernel_vs_plain(adj.op, state, adj_arrays, adj_scalars, 4,
+                                 d_w=d_w, n_f=2, fused=fused)
+    assert_bitwise(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["7pt-var", "25pt-const", "adj-mixed"])
+def test_mwd_diff_gradients_match_autograd_through_naive(cuda, name):
+    """The backward runs K1 on the adjoint op (launches counted) and matches
+    autograd through `ops.naive` within ``8·(atol + rtol·max(|ref|, 1))``;
+    the 1st-order stacked forward equals the fused advance bitwise."""
+    spec = _op(name)
+    grid = (20, 24, 36) if spec.radius == 1 else (24, 32, 40)
+    state, coeffs = tst.make_problem(spec, grid, seed=5, device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    w = torch.randn(grid, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+
+    def grads(runner, **kw):
+        args = [t.clone().requires_grad_()
+                for t in (state[0], state[1], arrays)]
+        out = runner(spec, (args[0], args[1]),
+                     tir.join_coeffs(spec, args[2], scalars), 4, **kw)
+        return out, torch.autograd.grad((w * out[0]).sum(), args,
+                                        allow_unused=True)
+
+    before = tkern.LAUNCHES.count
+    out, got = grads(tops.mwd_diff, d_w=8, n_f=2)
+    assert tkern.LAUNCHES.count > before
+    assert_bitwise(out, tops.mwd(spec, state, coeffs, 4, d_w=8, n_f=2))
+    _, want = grads(tops.naive)
+    atol, rtol = spec.tolerance("f32")
+    for a, b in zip(got, want):
+        b = torch.zeros_like(a) if b is None else b
+        mag = max(float(b.abs().max()), 1.0)
+        assert float((a - b).abs().max()) <= 8 * (atol + rtol * mag)
