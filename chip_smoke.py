@@ -57,10 +57,35 @@ failure so the script exits non-zero:
    registers and spills, and the cluster barriers per CTA and row times
    one barrier's cost measured alone;
 4. serving: serve_stencil("7pt-var", 512^3, 8 steps, 4 requests,
-   max_batch=2) on the same registry (its batch-2 key, not tuned, resolves
-   through the model), every response bitwise equal to its own sequential
-   ops.mwd, with K1's launch count read around the serving run, and K1
-   against its plain version at the serving batch's shape (B=2, 512^3);
+   max_batch=2; the server draws its requests on the card) on the same registry (its
+   batch-2 key, not tuned, resolves through the model), every response
+   bitwise equal to its own sequential ops.mwd, with K1's launch count
+   read around the serving run, and K1 against its plain version at the
+   serving batch's shape (B=2, 512^3);
+4b. ragged serving: serve_stencil over 512^3 and 448 x 480 x 496 with
+   pad="pow2" (one 512^3 class; each batch of two holds one exact and one
+   smaller member, so every batch runs the frozen-halo masked path) for
+   7pt-var, 7pt-const (its 7pt-const+mask twin) and 25pt-const: 2 batches
+   of 2, waste 0.1144, every response bitwise equal to ops.mwd on its own
+   grid at the record's plan, K1 launched; a `ragged_serving` line per op
+   (plan and source, waste, p50/p99, GLUP/s over the requests' own cells,
+   one ragged launch split into building the masked members,
+   ops.mwd_batched and the crop beside two exact 512^3 members at the same
+   plan, peak memory); for each op K1 against its plain version on the
+   padded pair as the server launches it (B=2, 512^3), its kernel_config
+   equal to models.mwd_smem_plan; at 7pt-const K1 alone on the twin
+   beside K1 on 7pt-const at two exact members, each against its
+   compulsory bound; then K1 on
+   aniso11+mask against its plain version at the mid-size grid's pow2
+   class, fused, per-row and B=2;
+4c. the soak: launch.soak (the reference's seeded mixed-size traffic,
+   two ragged classes, two lanes) on the card, every response bitwise
+   equal to its own ops.mwd, none dropped, the batched drain faster than
+   one launch a request, and its report through soak_report.verdict with
+   CI's thresholds (p99 <= 2500 ms, 0 dropped, throughput ratio >= 1.0),
+   K1's launches read around the soak's serving run alone, and K1
+   against its plain version on one padded batch of 4 a soak class
+   (a `soak` line);
 5. the baselines: K2 (the spatial sweep) and K3 (the ghost-zone pass)
    against their plain versions at the mid-size grid, at a grid that is
    not a multiple of bz/by and at a 200-wide one, for the four paper ops
@@ -111,7 +136,8 @@ failure so the script exits non-zero:
    launch.fit.main's 10x gate at (8, 12, 10) (`fit_gate` line).
 
 Before the last line come one `baseline` JSON line per (op, method) and a
-JSON object with one entry per kernel; the last line is
+JSON object with one entry per kernel (K1's launches from phases 4, 4b,
+4c and 7); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -1150,6 +1176,250 @@ def phase_serving(tally: Tally, dev) -> dict:
     log("serving " + json.dumps(summary))
     log(f"phase 4 serving: {time.perf_counter() - t0:.1f} s")
     return summary
+
+
+# phase 4b: one pow2 class, 512^3; requests alternate the two shapes, so
+# each batch of two holds one exact and one smaller member
+RAGGED_OPS = ("7pt-var", "7pt-const", "25pt-const")
+RAGGED_GRIDS = (MAIN_GRID, (448, 480, 496))
+ANISO_SMALL = (40, 56, 36)      # aniso11's smaller member beside MID_GRID
+SPLIT_REPS = 3
+SOAK_GATE = dict(max_p99_ms=2500.0, max_dropped=0, min_throughput_ratio=1.0)
+
+
+def ragged_waste() -> float:
+    """The padding waste of one batch of RAGGED_GRIDS in MAIN_GRID's class."""
+    real = sum(math.prod(g) for g in RAGGED_GRIDS)
+    return (len(RAGGED_GRIDS) * math.prod(MAIN_GRID) - real) / real
+
+
+def launch_split(spec, pair, plan) -> dict:
+    """ms of one ragged launch of `pair` (one exact and one smaller
+    member) split into building the masked members (`padding.pad_batch`),
+    `ops.mwd_batched` and the crop, beside the whole `_launch_batch` of
+    the ragged pair and of two exact members (median of SPLIT_REPS by
+    CUDA events)."""
+    import torch
+    from repro_torch.core import padding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ragged, exact = pair
+    shapes = [tuple(r.state[0].shape) for r in ragged]
+    held = {}
+
+    def build():
+        held["in"] = padding.pad_batch(spec, [r.state for r in ragged],
+                                       [r.coeffs for r in ragged], MAIN_GRID)
+
+    def run():
+        mop, stacked, packed = held["in"]
+        held["out"] = ops.mwd_batched(mop, stacked, packed, MAIN_STEPS,
+                                      plan=plan)
+
+    def crop():
+        cur, prev = held["out"]
+        held["crops"] = [padding.crop_state((cur[i], prev[i]), sh)
+                         for i, sh in enumerate(shapes)]
+
+    def launch(members):
+        return lambda: serve._launch_batch(
+            spec, [r.state for r in members], [r.coeffs for r in members],
+            MAIN_STEPS, plan, MAIN_GRID)
+
+    out = {"build_ms": cuda_ms(build, SPLIT_REPS,
+                               lambda: held.pop("in", None))}
+    out["mwd_batched_ms"] = cuda_ms(run, SPLIT_REPS,
+                                    lambda: held.pop("out", None))
+    out["crop_ms"] = cuda_ms(crop, SPLIT_REPS)
+    held.clear()
+    out["ragged_launch_ms"] = cuda_ms(launch(ragged), SPLIT_REPS)
+    out["exact_launch_ms"] = cuda_ms(launch(exact), SPLIT_REPS)
+    torch.cuda.empty_cache()
+    return out
+
+
+def padded_k1(tally: Tally, spec, pair, plan) -> dict:
+    """K1 against its plain version on the ragged pair padded as
+    `_launch_batch` pads it (B=2, 512^3, the launched op: the +mask twin or
+    the op itself), its kernel_config against the fit twin. At 7pt-const
+    also K1 alone on the twin beside K1 on 7pt-const at two exact 512^3
+    members, each beside its compulsory bound."""
+    import torch
+    from repro_torch.core import ir, padding
+    ragged, exact = pair
+    mop, stacked, packed = padding.pad_batch(
+        spec, [r.state for r in ragged], [r.coeffs for r in ragged],
+        MAIN_GRID)
+    arrays, scalars = ir.split_coeffs(mop, packed)
+    kw = dict(d_w=plan.d_w, n_f=plan.n_f, fused=plan.fused)
+    _, _, cfg = tally.kernel_vs_plain(mop, stacked, arrays, scalars,
+                                      MAIN_STEPS, **kw)
+    line = {"streams": mop.n_coeff_arrays,
+            "padded_k1_vs_plain": "bitwise",
+            "config": twin_line(mop, cfg, plan.d_w, plan.n_f, MAIN_GRID[2])}
+    if spec.name != "7pt-const":
+        return line
+    line["twin_k1_ms"] = k1_ms(mop, stacked, arrays, scalars, kw)
+    del stacked, arrays
+    ex_state = tuple(torch.stack([r.state[i] for r in exact])
+                     for i in (0, 1))
+    _, ex_scalars = ir.split_coeffs(spec, exact[0].coeffs)
+    line["op_k1_ms"] = k1_ms(spec, ex_state, None, ex_scalars, kw)
+    for key, op in (("twin", mop), ("op", spec)):
+        b, by = bound(op, MAIN_GRID, MAIN_STEPS, batch=2)
+        line[f"{key}_bound_ms"], line[f"{key}_bound_by"] = b, by
+        line[f"{key}_share"] = b / line[f"{key}_k1_ms"]
+    return line
+
+
+def check_aniso11_twin(tally: Tally, dev) -> None:
+    """K1 on aniso11+mask (6 streams) against its plain version: a padded
+    MID_GRID member and a smaller one in their pow2 class, fused, per-row
+    and B=2, with kernel_config equal to the fit twin."""
+    from repro_torch.core import ir, padding
+    from repro_torch.core import stencils as st
+    spec = aniso11(ir)
+    cls = padding.POW2.padded_shape(MID_GRID)
+    probs = [st.make_problem(spec, sh, seed=s, device=dev)
+             for s, sh in enumerate((MID_GRID, ANISO_SMALL))]
+    mop, stacked, packed = padding.pad_batch(
+        spec, [p[0] for p in probs], [p[1] for p in probs], cls)
+    arrays, scalars = ir.split_coeffs(mop, packed)
+    one = (stacked[0][0], stacked[1][0])
+    for fused in (True, False):
+        _, _, cfg = tally.kernel_vs_plain(mop, one, arrays[0], scalars,
+                                          MAIN_STEPS, d_w=12, n_f=2,
+                                          fused=fused)
+        line = twin_line(mop, cfg, 12, 2, cls[2])
+    tally.kernel_vs_plain(mop, stacked, arrays, scalars, MAIN_STEPS, d_w=12,
+                          n_f=2, fused=True)
+    log(f"  {mop.name}: {mop.n_coeff_arrays} streams in class {cls}; "
+        f"fused/per-row/B=2 bitwise vs plain; config = twin "
+        f"{json.dumps(line)}")
+
+
+def phase_ragged(tally: Tally, dev) -> dict:
+    """4b: serve_stencil over RAGGED_GRIDS with pad="pow2" per RAGGED_OPS;
+    returns the K1 launches of the serving runs."""
+    import torch
+    from repro_torch.core import padding
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_mwd as sm
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    launches = 0
+    for name in RAGGED_OPS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        sm.LAUNCHES.count = 0
+        rep = serve.serve_stencil(name, list(RAGGED_GRIDS),
+                                  n_steps=MAIN_STEPS, n_requests=4,
+                                  max_batch=2, pad="pow2", device=dev)
+        n = sm.LAUNCHES.count
+        peak = torch.cuda.max_memory_allocated()
+        launches += n
+        check(rep["served"] == 4, f"{name}: served {rep['served']}/4")
+        check(rep["batch_sizes"] == [2, 2],
+              f"{name}: batch sizes {rep['batch_sizes']}")
+        check(rep["classes"] == {str(MAIN_GRID): 4},
+              f"{name}: classes {rep['classes']}")
+        check(abs(rep["padding_waste"] - ragged_waste()) < 1e-12,
+              f"{name}: waste {rep['padding_waste']} != {ragged_waste()}")
+        check(n > 0, f"{name}: the ragged serving run launched no K1 kernel")
+        plan_of = {rid: rec["plan"] for rec in rep["records"]
+                   for rid in rec["rids"]}
+        for req in rep["requests"]:
+            want = ops.mwd(req.spec, req.state, req.coeffs, req.n_steps,
+                           plan=plan_of[req.rid])
+            got = rep["results"][req.rid]
+            check(tuple(got[0].shape) == tuple(req.state[0].shape),
+                  f"{name} request {req.rid}: response not cropped")
+            check(all(same(a, b) for a, b in zip(got, want)),
+                  f"{name} request {req.rid}: ragged response != its own "
+                  f"ops.mwd ({first_difference(got, want)})")
+            check(bool(torch.isfinite(got[0]).all()), "non-finite response")
+            del want
+        spec = rep["requests"][0].spec
+        first = rep["records"][0]
+        plan = first["plan"]
+        reqs = rep["requests"]
+        pair = ([r for r in reqs if r.rid in first["rids"]],
+                [r for r in reqs if tuple(r.state[0].shape) == MAIN_GRID])
+        check(len(pair[1]) == 2 and len(pair[0]) == 2
+              and {tuple(r.state[0].shape) for r in pair[0]}
+              == set(RAGGED_GRIDS), f"{name}: batch {first['rids']} is not "
+                                    "one exact and one smaller member")
+        del rep["results"]
+        summary = {
+            "op": name, "twin": padding.masked_variant(spec).name,
+            "grids": [list(g) for g in RAGGED_GRIDS],
+            "class": list(MAIN_GRID), "steps": MAIN_STEPS,
+            "plan": f"dw{plan.d_w}.nf{plan.n_f}."
+                    f"{'fused' if plan.fused else 'row'}",
+            "plan_source": sorted({rec["plan_source"]
+                                   for rec in rep["records"]}),
+            "batch_sizes": rep["batch_sizes"],
+            "padding_waste": rep["padding_waste"],
+            "p50_ms": float(rep["p50_ms"]), "p99_ms": float(rep["p99_ms"]),
+            "glups": rep["glups"], "wall_s": rep["wall_s"],
+            "k1_launches": n, "peak_gb": peak / 1e9,
+            "peak_over_start_gb": (peak - start) / 1e9}
+        summary.update(launch_split(spec, pair, plan))
+        summary.update(padded_k1(tally, spec, pair, plan))
+        log("ragged_serving " + json.dumps(summary))
+        del rep, pair, reqs
+        torch.cuda.empty_cache()
+    check_aniso11_twin(tally, dev)
+    log(f"phase 4b ragged serving: {time.perf_counter() - t0:.1f} s")
+    return {"k1_launches": launches}
+
+
+def phase_soak(tally: Tally, dev) -> dict:
+    """4c: launch.soak on the card, its report through soak_report.verdict
+    with CI's thresholds (SOAK_GATE), then K1 against its plain version on
+    one padded batch of MAX_BATCH members per soak class; returns the K1
+    launches of the soak's serving run (`run_mix`'s count: neither its
+    warm-up, its checks nor the throughput contest)."""
+    from repro_torch.core import ir, padding
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import stencil_mwd as sm
+    from repro_torch.launch import serve, soak, soak_report
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_soak_")
+    try:
+        path = os.path.join(out, "soak.json")
+        events = soak.events_path(path)
+        sm.LAUNCHES.count = 0
+        report, problems, launches = soak.run_mix(dev, events)
+        report = soak.finish(report, problems, path, events)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    fails = soak_report.verdict(report, **SOAK_GATE)
+    check(not fails, "soak gate: " + "; ".join(fails))
+    check(launches > 0, "the soak launched no K1 kernel")
+    spec, plan = st.SPECS[soak.OP], soak.PLAN
+    for cls, members in serve.padding_classes(problems, soak.LADDER).items():
+        batch = members[:soak.MAX_BATCH]
+        check(len(batch) == soak.MAX_BATCH
+              and all(tuple(p[0][0].shape) != cls for p in batch),
+              f"soak class {cls}: {len(batch)} members, not "
+              f"{soak.MAX_BATCH} smaller ones")
+        mop, stacked, packed = padding.pad_batch(
+            spec, [p[0] for p in batch], [p[1] for p in batch], cls)
+        arrays, scalars = ir.split_coeffs(mop, packed)
+        tally.kernel_vs_plain(mop, stacked, arrays, scalars, soak.N_STEPS,
+                              d_w=plan.d_w, n_f=plan.n_f, fused=plan.fused)
+    line = {k: report[k] for k in (
+        "op", "plan", "classes", "served", "dropped", "deadline_misses",
+        "p50_ms", "p95_ms", "p99_ms", "throughput_ratio", "t_seq_s",
+        "t_bat_s", "batch_sizes", "padding_waste", "wall_s")}
+    line.update(gate=SOAK_GATE, k1_launches=launches,
+                padded_k1_vs_plain="bitwise, one batch of "
+                                   f"{soak.MAX_BATCH} a class")
+    log("soak " + json.dumps(line))
+    log(f"phase 4c soak: {time.perf_counter() - t0:.1f} s")
+    return {"k1_launches": launches}
 
 
 GHOSTZONE_DEFAULTS = dict(t_block=4, bz=16, by=16)   # ops.ghostzone's
@@ -2220,6 +2490,8 @@ def main() -> int:
         phase_tune(dev)
         rows = phase_main_path(tally, dev, ptxas)
         served = phase_serving(tally, dev)
+        ragged = phase_ragged(tally, dev)
+        soaked = phase_soak(tally, dev)
         phase_baselines_small(tally, dev)
         base, base_launches, library = phase_baselines_main(tally, dev,
                                                             ptxas)
@@ -2232,7 +2504,8 @@ def main() -> int:
         "name": "mwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mwd.cu",
         "replaces": "src/repro/kernels/stencil_mwd.py:69",
-        "launches": served["k1_launches"] + diff["launches"],
+        "launches": (served["k1_launches"] + ragged["k1_launches"]
+                     + soaked["k1_launches"] + diff["launches"]),
         "max_abs_err": tally.max_abs_err["mwd"],
         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

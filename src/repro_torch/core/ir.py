@@ -405,8 +405,9 @@ def split_coeffs(op: StencilOp, coeffs):
     """Packed (public) coefficients -> canonical ``(arrays, scalars)``.
 
     Scalars-only ops pass a tuple, arrays-only ops the stacked stream, mixed
-    ops ``(arrays, scalars)``; a bare 3-D array is accepted for A == 1.
-    Works on tensors and on numpy arrays alike.
+    ops ``(arrays, scalars)``; a bare 3-D array is accepted for A == 1, and
+    streams stacked per batch item ``(B, A, z, y, x)`` pass through as
+    they are. Works on tensors and on numpy arrays alike.
     """
     n_arr, n_sca = op.n_coeff_arrays, op.n_scalars
     if n_arr and n_sca:
@@ -417,9 +418,10 @@ def split_coeffs(op: StencilOp, coeffs):
         arrays, scalars = None, coeffs
     if arrays is not None and arrays.ndim == 3:
         arrays = arrays[None]
-    if arrays is not None and arrays.shape[0] != n_arr:
+    if arrays is not None and (arrays.ndim < 4
+                               or arrays.shape[-4] != n_arr):
         raise ValueError(f"{op.name}: expected {n_arr} coefficient streams, "
-                         f"got {arrays.shape[0]}")
+                         f"got shape {tuple(arrays.shape)}")
     scalars = tuple(scalars)
     if len(scalars) != n_sca:
         raise ValueError(f"{op.name}: expected {n_sca} scalar coefficients, "

@@ -1,6 +1,14 @@
-"""Serving queue policy: lanes, admission control, batching windows.
+"""Dynamic tile scheduler (paper Sec. 4.2.3) and serving queue policy.
 
-The port of the serving half of `repro.core.scheduler`: a two-lane
+The port of `repro.core.scheduler`. The first half is the paper's dynamic
+tile scheduler: a multi-producer multi-consumer FIFO of ready tiles
+(`FifoScheduler` over a `TileGraph`, built from a diamond schedule by
+`from_diamond_schedule`). When a worker finishes a tile it enqueues every
+dependent whose last unmet dependency it was, so a slow worker never stalls
+the queue: the others keep draining it. It is host-side and generic over
+the work it runs; `topological_order` is its single-threaded drain.
+
+The second half is the serving queue policy of `launch.serve`: a two-lane
 (interactive/batch) bounded queue with admission control and backpressure
 (`LaneQueue`), the deadline-aware batch-window close rule
 (`window_close_s`), and the per-bucket launch-time estimator
@@ -16,6 +24,132 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+import threading
+from typing import Callable, Hashable, Mapping, Sequence
+
+
+@dataclasses.dataclass
+class TileGraph:
+    """Dependency DAG over hashable tile keys."""
+
+    deps: Mapping[Hashable, Sequence[Hashable]]
+
+    def validate(self) -> None:
+        """Raise ValueError if any dependency points outside the graph."""
+        for k, ds in self.deps.items():
+            for d in ds:
+                if d not in self.deps:
+                    raise ValueError(f"tile {k} depends on unknown {d}")
+
+
+def from_diamond_schedule(sched) -> TileGraph:
+    """Tile DAG of a `core.tiling.DiamondSchedule`, keyed by (row, col)."""
+    deps = {}
+    for tile in sched.tiles():
+        deps[(tile.row, tile.col)] = tuple(sched.dependencies(tile))
+    return TileGraph(deps)
+
+
+class FifoScheduler:
+    """Dependency-respecting FIFO; thread-safe pop/complete under one lock."""
+
+    def __init__(self, graph: TileGraph):
+        graph.validate()
+        self._lock = threading.Lock()
+        self._remaining = {k: len(ds) for k, ds in graph.deps.items()}
+        self._dependents: dict[Hashable, list[Hashable]] = \
+            collections.defaultdict(list)
+        for k, ds in graph.deps.items():
+            for d in ds:
+                self._dependents[d].append(k)
+        self._queue = collections.deque(
+            k for k, n in self._remaining.items() if n == 0)
+        self._done: set[Hashable] = set()
+        self._total = len(graph.deps)
+
+    def pop(self):
+        """Next ready tile, or None while every ready tile is taken."""
+        with self._lock:
+            if self._queue:
+                return self._queue.popleft()
+            return None
+
+    def complete(self, key: Hashable) -> None:
+        """Mark `key` done and enqueue dependents it was the last blocker of."""
+        with self._lock:
+            self._done.add(key)
+            for dep in self._dependents.get(key, ()):
+                self._remaining[dep] -= 1
+                if self._remaining[dep] == 0:
+                    self._queue.append(dep)
+
+    @property
+    def finished(self) -> bool:
+        """Whether every tile in the graph has completed."""
+        with self._lock:
+            return len(self._done) == self._total
+
+    def _abort(self) -> None:
+        """Mark every tile done, so the other workers stop."""
+        with self._lock:
+            self._done.update(self._remaining)
+
+    def run(self, execute: Callable[[Hashable], None], n_workers: int = 1,
+            name: str = "tg") -> list[list[Hashable]]:
+        """Drain the graph with `n_workers` threads.
+
+        Returns per-worker execution logs (the tiles each worker ran, in
+        order). The first exception a tile raises stops every worker and
+        is raised here.
+        """
+        logs: list[list[Hashable]] = [[] for _ in range(n_workers)]
+        errors: list[BaseException] = []
+
+        def worker(i: int) -> None:
+            while not self.finished:
+                key = self.pop()
+                if key is None:
+                    if self.finished:
+                        return
+                    threading.Event().wait(0.0005)
+                    continue
+                try:
+                    execute(key)
+                except BaseException as e:  # re-raised by run()
+                    errors.append(e)
+                    self._abort()
+                    return
+                logs[i].append(key)
+                self.complete(key)
+
+        threads = [threading.Thread(target=worker, args=(i,),
+                                    name=f"{name}{i}")
+                   for i in range(n_workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return logs
+
+
+def topological_order(graph: TileGraph) -> list[Hashable]:
+    """Kahn's algorithm; raises ValueError on a cycle."""
+    sched = FifoScheduler(graph)
+    order = []
+    while not sched.finished:
+        k = sched.pop()
+        if k is None:
+            raise ValueError("cycle in tile graph")
+        order.append(k)
+        sched.complete(k)
+    return order
+
+
+# ---------------------------------------------------------------------------
+# Serving queue policy (consumed by launch.serve)
+# ---------------------------------------------------------------------------
 
 LANES = ("interactive", "batch")        # service order: interactive first
 

@@ -118,9 +118,11 @@ def mwd_batched(spec: StencilSpec, states, coeffs, n_steps: int,
 
     `states` is a sequence of B ``(cur, prev)`` pairs or an already-stacked
     pair of ``(B, nz, ny, nx)`` tensors; `coeffs` is a **list** of B packed
-    coefficient sets (array streams batch, scalars must be shared) or one
-    packed set applied to every request. Returns batched ``(cur, prev)``,
-    bitwise equal to a per-item `mwd` loop.
+    coefficient sets (array streams batch, scalars must be shared), one
+    packed set applied to every request, or one packed set whose streams
+    are already stacked ``(B, A, nz, ny, nx)``. Stacked inputs are used as
+    they are, with no copy. Returns batched ``(cur, prev)``, bitwise equal
+    to a per-item `mwd` loop.
 
     A batch whose members disagree on dtype is refused unless `dtype=` is
     given: stacking would silently promote every member.
@@ -153,14 +155,17 @@ def mwd_batched(spec: StencilSpec, states, coeffs, n_steps: int,
             raise ValueError(f"{spec.name}: got {len(coeffs)} coefficient "
                              f"sets for a batch of {b}")
         arrays, scalars = ir.split_coeffs_batch(spec, coeffs)
-    else:                       # one packed set shared by the whole batch
-        arrays, scalars = _split_coeffs(spec, coeffs)
         if arrays is not None:
-            arrays = (arrays,) * b
-    if arrays is not None:
-        arrays = torch.stack(arrays)
-        if dt is not None:
-            arrays = arrays.to(dt)
+            arrays = torch.stack(arrays)
+    else:               # one packed set: shared, or streams stacked per item
+        arrays, scalars = _split_coeffs(spec, coeffs)
+        if arrays is not None and arrays.ndim == 4:
+            arrays = torch.stack((arrays,) * b)
+        elif arrays is not None and arrays.shape[0] != b:
+            raise ValueError(f"{spec.name}: streams stacked for "
+                             f"{arrays.shape[0]} items, batch of {b}")
+    if arrays is not None and dt is not None:
+        arrays = arrays.to(dt)
     acc_dt = precision.resolve_acc(cur.dtype, acc)
     return stencil_mwd.mwd_run_batched(spec, (cur, prev), arrays, scalars,
                                        n_steps, d_w=d_w, n_f=n_f,

@@ -1,24 +1,27 @@
 """Stencil request-queue server on the port's MWD kernel.
 
-  python -m repro_torch.launch.serve --stencil 7pt-var --grid 512,512,512 \\
-      --requests 4 --steps 8 --max-batch 2
+  python -m repro_torch.launch.serve --stencil 7pt-var \\
+      --grid "512,512,512;448,480,496" --pad pow2 --requests 4 --steps 8 \\
+      --max-batch 2
 
 The port of the stencil half of `repro.launch.serve`: each request asks to
 advance its own grid N time steps. Requests are bucketed by operator
-fingerprint, grid shape, dtype, step count and scalar coefficients; when a
-request reaches the head of the two-lane queue the server waits at most
-`--batch-window-ms` for up to `--max-batch` same-bucket arrivals, then
-advances the whole batch with one `ops.mwd_batched` call (one kernel launch
-per diamond row for all B grids). Telemetry (`--telemetry stdout` or
-``jsonl:<path>``) reports per-bucket throughput, queue depth and rolling
+fingerprint, padding class (the grid's per-axis rung of the ``--pad``
+ladder: ``exact``, ``pow2`` or rungs such as ``8,16,32``), dtype, step
+count and scalar coefficients; when a request reaches the head of the
+two-lane queue the server waits at most `--batch-window-ms` for up to
+`--max-batch` same-bucket arrivals, then advances the whole batch with one
+`ops.mwd_batched` call (one kernel launch per diamond row for all B grids)
+at the class shape. Smaller grids ride under frozen-halo masking
+(`core.padding`), so every response equals its own unpadded `ops.mwd` run
+under the same plan. Telemetry (`--telemetry stdout` or ``jsonl:<path>``)
+reports per-bucket throughput, queue depth, padding waste and rolling
 latency percentiles.
 
 Plans resolve registry-first per (class, batch size) under the ``b<B>``
 key (`core.registry`; ``--registry PATH`` names the file, ``--spec`` the
-device spec the model prices against). Only exact padding classes are
-served so far: a ragged ladder (``pow2``, rungs) needs the frozen-halo
-masking that is not ported yet and is refused. Runs on ``cuda`` unless
-``--device cpu`` is given.
+device spec the model prices against); a ragged batch resolves the masked
+operator's plan. Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -70,8 +73,10 @@ def bucket_key(spec, state, coeffs, n_steps: int, ladder=None) -> tuple:
     """Batchability class of a request.
 
     Requests may share one batched launch iff they agree on the operator's
-    structural fingerprint, padding class (the exact shape under the exact
-    ladder), dtype, step count and scalar coefficients.
+    structural fingerprint, padding class (the grid shape's per-axis ladder
+    rung; the exact shape under the exact ladder), dtype, step count and
+    scalar coefficients: the kernel inlines the scalars, so two requests
+    with different constants never ride one launch.
     """
     lad = padding.parse_ladder(ladder)
     _, scalars = ir.split_coeffs(spec, coeffs)
@@ -79,15 +84,6 @@ def bucket_key(spec, state, coeffs, n_steps: int, ladder=None) -> tuple:
     return (spec.fingerprint, lad.padded_shape(cur.shape),
             precision.dtype_name(cur.dtype), n_steps,
             tuple(float(x) for x in scalars))
-
-
-def _require_exact(ladder) -> padding.PaddingLadder:
-    lad = padding.parse_ladder(ladder)
-    if lad.mode != "exact":
-        raise NotImplementedError(
-            f"padding ladder {lad.mode!r}: only exact classes are served "
-            "until the frozen-halo masking is ported")
-    return lad
 
 
 def _resolve(spec, plan, batch: int, shape, word: int, registry=None):
@@ -105,25 +101,102 @@ def _resolve(spec, plan, batch: int, shape, word: int, registry=None):
 
 def _launch_batch(spec, states, coeffs_list, n_steps, plan, padded_shape,
                   registry=None):
-    """One batched MWD advance of exact-fit grids.
+    """One batched MWD advance at the padding-class shape.
 
-    Every grid must already have the class shape: ragged batches need the
-    frozen-halo masking that the port does not have yet, so they raise.
-    Returns ``(per-request (cur, prev) list, plan, plan_source)``; the
-    results are on the device when this returns.
+    An exact-fit batch (every grid already at `padded_shape`) runs `spec`
+    on the members' own tensors. A ragged batch runs
+    `padding.masked_variant(spec)` on the members embedded straight into
+    stacked class-shape tensors (`padding.pad_batch`; the recipe is cached
+    per op, so a batch signature derives nothing anew) and crops each
+    response back with views; its members must share their scalar
+    coefficients. ``plan="auto"`` resolves the launched op's plan under
+    the ``b<B>`` key. Each response equals the member's unpadded
+    `ops.mwd` under the returned plan. Returns ``(per-request (cur, prev)
+    list, plan, plan_source)``; the results are on the device when this
+    returns.
     """
     shapes = [tuple(s[0].shape) for s in states]
-    if any(sh != tuple(padded_shape) for sh in shapes):
-        raise NotImplementedError(
-            f"{spec.name}: ragged batch {shapes} in class {padded_shape}; "
-            "padding classes other than exact are not ported yet")
-    plan, source = _resolve(spec, plan, len(states), padded_shape,
+    exact = all(sh == tuple(padded_shape) for sh in shapes)
+    run_spec = spec if exact else padding.masked_variant(spec)
+    plan, source = _resolve(run_spec, plan, len(states), padded_shape,
                             states[0][0].element_size(), registry)
-    cur, prev = ops.mwd_batched(spec, list(states), list(coeffs_list),
-                                n_steps, plan=plan)
+    if exact:
+        cur, prev = ops.mwd_batched(spec, list(states), list(coeffs_list),
+                                    n_steps, plan=plan)
+        outs = [(cur[i], prev[i]) for i in range(len(states))]
+    else:
+        mop, stacked, packed = padding.pad_batch(spec, states, coeffs_list,
+                                                 padded_shape)
+        cur, prev = ops.mwd_batched(mop, stacked, packed, n_steps, plan=plan)
+        outs = [padding.crop_state((cur[i], prev[i]), sh)
+                for i, sh in enumerate(shapes)]
     if cur.is_cuda:
         torch.cuda.synchronize(cur.device)
-    return [(cur[i], prev[i]) for i in range(len(states))], plan, source
+    return outs, plan, source
+
+
+def draw_problem(spec, grid, dtype, seed: int, device):
+    """One request's seeded ``(state, coeffs)`` on `device`.
+
+    On the CPU these are `make_problem`'s numpy draws, the reference's
+    numbers; on the card `random_problem`'s draws of the same distribution
+    there (seconds faster a 512^3 volume).
+    """
+    make = (stc.make_problem if torch.device(device).type == "cpu"
+            else stc.random_problem)
+    return make(spec, grid, dtype=dtype, seed=seed, device=device)
+
+
+def padding_classes(problems, ladder) -> dict:
+    """``(state, coeffs)`` problems grouped by their padding class."""
+    lad = padding.parse_ladder(ladder)
+    classes: dict[tuple, list] = {}
+    for p in problems:
+        classes.setdefault(lad.padded_shape(p[0][0].shape), []).append(p)
+    return classes
+
+
+def queue_summary(requests, records) -> dict:
+    """What one `serve_queue` run's `records` say of its `requests`.
+
+    Returns the requests served, their sorted latencies (``latencies_s``)
+    and p50/p95/p99 in ms (0 when none was served), the deadline misses,
+    the batch sizes and the padding waste weighted by batch size.
+    """
+    done_by_rid = {rid: rec["done_s"] for rec in records
+                   for rid in rec["rids"]}
+    served = [r for r in requests if r.rid in done_by_rid]
+    lat = sorted(done_by_rid[r.rid] - r.arrival_s for r in served)
+    p50, p95, p99 = (np.percentile(lat, [50, 95, 99]) if lat
+                     else (0.0, 0.0, 0.0))
+    sizes = [rec["size"] for rec in records]
+    return {"served": served, "latencies_s": lat,
+            "p50_ms": float(p50) * 1e3, "p95_ms": float(p95) * 1e3,
+            "p99_ms": float(p99) * 1e3,
+            "deadline_misses": sum(done_by_rid[r.rid] > r.deadline_s
+                                   for r in served),
+            "batch_sizes": sizes,
+            "padding_waste": (sum(rec["waste"] * rec["size"]
+                                  for rec in records) / max(sum(sizes), 1))}
+
+
+def warm(spec, classes, max_batch, n_steps, plan, registry=None) -> None:
+    """Launch every (class, batch size, exact or masked) signature once.
+
+    `classes` maps a class shape to its members' ``(state, coeffs)``
+    problems. One exact-fit member warms the plain op and one smaller
+    member the masked one, at every batch size up to `max_batch` the class
+    can form (window jitter makes any of them possible), so kernel builds
+    and plan resolution stay out of the serving loop's latencies.
+    """
+    for cls, members in classes.items():
+        exact = [p for p in members if tuple(p[0][0].shape) == cls]
+        ragged = [p for p in members if tuple(p[0][0].shape) != cls]
+        for first in (exact[:1], ragged[:1]):
+            for b in (range(1, min(max_batch, len(members)) + 1) if first
+                      else ()):
+                _launch_batch(spec, [first[0][0]] * b, [first[0][1]] * b,
+                              n_steps, plan, cls, registry)
 
 
 def serve_queue(requests, *, max_batch: int = 4, batch_window_ms: float = 5.0,
@@ -136,7 +209,9 @@ def serve_queue(requests, *, max_batch: int = 4, batch_window_ms: float = 5.0,
     the head, the server collects every admitted same-bucket request and
     waits — at most `batch_window_ms` past the head's service start, closed
     early by the head's deadline — while the batch is short of `max_batch`;
-    the batch then advances in one `ops.mwd_batched` call.
+    the batch then advances in one `ops.mwd_batched` call at the padding
+    class's shape (`ladder`: None/"exact", "pow2" or rungs), smaller grids
+    under frozen-halo masking.
 
     Returns ``(results, records)``: ``results[rid]`` is the request's
     ``(cur, prev)`` or `Rejected`, and one record dict per batch
@@ -145,7 +220,7 @@ def serve_queue(requests, *, max_batch: int = 4, batch_window_ms: float = 5.0,
     the process default registry). The launch-time estimator's dispatch
     is the device spec's measured `launch_s`.
     """
-    lad = _require_exact(ladder)
+    lad = padding.parse_ladder(ladder)
     tele = tlm.make_telemetry(telemetry)
     own_tele = not isinstance(telemetry, tlm.Telemetry)
     queue = scheduler.LaneQueue(admission or scheduler.AdmissionPolicy())
@@ -243,35 +318,37 @@ def serve_stencil(name: str, grid, n_steps: int, n_requests: int, *,
     """Stencil-advance request-queue server: continuous batching over MWD.
 
     `name` is any operator `ir.resolve_op` knows. `grid` is one Z,Y,X shape
-    or a list of shapes (requests cycle through them; each shape is its own
-    class). `n_requests` requests — request i made by `make_problem` with
-    seed ``seed + i`` on `device`, arriving `arrival_ms` apart — are served
-    through `serve_queue`. Every `interactive_every`-th request (0 = none)
+    or a list of shapes: requests cycle through them, and the `pad` ladder
+    (None/"exact", "pow2" or rungs such as "8,16") groups them into padding
+    classes, so mixed sizes share batched launches. `n_requests` requests
+    (request i drawn with seed ``seed + i`` on `device`, arriving
+    `arrival_ms` apart) are served through `serve_queue`. Every `interactive_every`-th request (0 = none)
     rides the interactive lane with a `deadline_ms` SLO; `max_queue_depth`
     bounds admission. `plan` is ``"auto"`` (`ops.resolve_plan`) or an
     explicit `MWDPlan` applied to every launch; `registry` is where
-    ``"auto"`` resolves (default: the process default registry).
+    ``"auto"`` resolves (default: the process default registry). Requests
+    are drawn by `draw_problem`.
 
-    Every batch size the queue can form is launched once before serving,
-    so the kernel build and first launches stay out of the latency figures.
+    Every (class, batch size, exact or masked) launch the queue can form
+    runs once before serving (one exact-fit member warms the plain op, one
+    smaller member the masked one), so kernel builds, plan resolution and
+    first launches stay out of the latency figures.
 
     Returns a report dict (plan, source, results, the requests served,
-    per-batch records, latency percentiles, GLUP/s, batch sizes,
-    rejections, deadline misses).
+    per-batch records, latency percentiles, GLUP/s over the requests' own
+    cells, batch sizes, rejections, deadline misses, padding waste, the
+    requests per class).
     """
     spec = ir.resolve_op(name)
     dev = resolve_device(device)
     grids = ([tuple(g) for g in grid]
              if grid and isinstance(grid[0], (tuple, list))
              else [tuple(grid)] if grid else [reg.default_grid(spec)])
-    ladder = _require_exact(pad)
+    ladder = padding.parse_ladder(pad)
     dt = precision.parse_dtype(dtype) if dtype is not None else None
-    problems = [stc.make_problem(spec, grids[i % len(grids)], dtype=dt,
-                                 seed=seed + i, device=dev)
+    problems = [draw_problem(spec, grids[i % len(grids)], dt, seed + i, dev)
                 for i in range(n_requests)]
-    classes: dict[tuple, list] = {}
-    for p in problems:
-        classes.setdefault(ladder.padded_shape(p[0][0].shape), []).append(p)
+    classes = padding_classes(problems, ladder)
     head_plan, source = _resolve(spec, plan, max(1, max_batch),
                                  next(iter(classes)),
                                  problems[0][0][0].element_size(), registry)
@@ -280,10 +357,7 @@ def serve_stencil(name: str, grid, n_steps: int, n_requests: int, *,
           f"{'fused' if head_plan.fused else 'row'} ({source}); "
           f"max_batch={max_batch} window={batch_window_ms}ms pad={ladder.mode}")
 
-    for cls, members in classes.items():
-        for b in range(1, min(max_batch, len(members)) + 1):
-            _launch_batch(spec, [members[0][0]] * b, [members[0][1]] * b,
-                          n_steps, plan, cls, registry)
+    warm(spec, classes, max_batch, n_steps, plan, registry)
 
     requests = [
         StencilRequest(
@@ -305,28 +379,22 @@ def serve_stencil(name: str, grid, n_steps: int, n_requests: int, *,
                                    registry=registry)
     t_wall = time.perf_counter() - t_start
 
-    done_by_rid = {rid: rec["done_s"] for rec in records
-                   for rid in rec["rids"]}
-    served = [r for r in requests if r.rid in done_by_rid]
+    summ = queue_summary(requests, records)
+    served = summ.pop("served")
     rejected = [r for r in requests if isinstance(results.get(r.rid), Rejected)]
-    misses = sum(done_by_rid[r.rid] > r.deadline_s for r in served)
-    lat = sorted(done_by_rid[r.rid] - r.arrival_s for r in served)
-    p50, p95, p99 = (np.percentile(lat, [50, 95, 99]) if lat
-                     else (0.0, 0.0, 0.0))
     lups = sum(float(np.prod(r.state[0].shape)) * n_steps for r in served)
     glups = lups / t_wall / 1e9
-    sizes = [rec["size"] for rec in records]
     print(f"served {len(served)}/{n_requests} requests x {n_steps} steps in "
-          f"{len(records)} batches (sizes {sizes}): "
-          f"p50 {p50*1e3:.1f}ms p95 {p95*1e3:.1f}ms p99 {p99*1e3:.1f}ms, "
-          f"agg {glups:.4f} GLUP/s; rejected={len(rejected)} "
-          f"deadline_misses={misses}")
+          f"{len(records)} batches (sizes {summ['batch_sizes']}): "
+          f"p50 {summ['p50_ms']:.1f}ms p95 {summ['p95_ms']:.1f}ms "
+          f"p99 {summ['p99_ms']:.1f}ms, agg {glups:.4f} GLUP/s; "
+          f"rejected={len(rejected)} "
+          f"deadline_misses={summ['deadline_misses']} "
+          f"waste={summ['padding_waste']:.3f}")
     return {"plan": head_plan, "source": source, "results": results,
-            "requests": requests, "records": records, "latencies_s": lat, "p50_ms": p50 * 1e3,
-            "p95_ms": p95 * 1e3, "p99_ms": p99 * 1e3, "glups": glups,
-            "batch_sizes": sizes, "served": len(served),
-            "rejected": len(rejected), "deadline_misses": misses,
-            "wall_s": t_wall, "device": str(dev),
+            "requests": requests, "records": records, **summ,
+            "glups": glups, "served": len(served),
+            "rejected": len(rejected), "wall_s": t_wall, "device": str(dev),
             "classes": {str(c): len(m) for c, m in classes.items()}}
 
 
@@ -351,7 +419,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arrival-ms", type=float, default=1.0,
                     help="synthetic inter-arrival gap between requests")
     ap.add_argument("--pad", default="exact",
-                    help="padding ladder; only 'exact' is served so far")
+                    help="padding ladder: 'exact', 'pow2', or rungs '8,16,32'"
+                         " — mixed sizes in one class share batched launches")
     ap.add_argument("--dtype", default=None,
                     help="stream dtype of every request (f32/bf16/fp16)")
     ap.add_argument("--telemetry", default=None,

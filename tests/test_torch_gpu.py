@@ -568,3 +568,48 @@ def test_mwd_diff_gradients_match_autograd_through_naive(cuda, name):
         b = torch.zeros_like(a) if b is None else b
         mag = max(float(b.abs().max()), 1.0)
         assert float((a - b).abs().max()) <= 8 * (atol + rtol * mag)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["7pt-var", "7pt-const", "25pt-const"])
+def test_ragged_server_equals_per_request_mwd(cuda, name):
+    """Two grid sizes in one pow2 class (64^3), batches of one exact and
+    one smaller member: every batch takes the masked path through K1, and
+    each response equals its own unpadded `ops.mwd` bitwise."""
+    from repro_torch.core.mwd import MWDPlan
+    from repro_torch.launch import serve
+    plan = MWDPlan(d_w=8, n_f=2)
+    before = tkern.LAUNCHES.count
+    rep = serve.serve_stencil(name, [(64, 64, 64), (48, 60, 52)], n_steps=6,
+                              n_requests=4, max_batch=2, pad="pow2",
+                              plan=plan, device=cuda)
+    assert tkern.LAUNCHES.count > before
+    assert rep["batch_sizes"] == [2, 2] and rep["classes"] == {
+        str((64, 64, 64)): 4}
+    for req in rep["requests"]:
+        want = tops.mwd(req.spec, req.state, req.coeffs, 6, plan=plan)
+        assert_bitwise(rep["results"][req.rid], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["7pt-const", "aniso11"])
+@pytest.mark.parametrize("batched", [False, True])
+def test_kernel_on_mask_twins_equals_plain_version(cuda, name, batched):
+    """K1 on the +mask twins (7pt-const's 2 streams, aniso11's 6) on their
+    padded problems, fused and per-row, one member or B = 2."""
+    from repro_torch.core import padding
+    spec = aniso11(tir) if name == "aniso11" else tst.SPECS[name]
+    d_w = 12 if name == "aniso11" else 8
+    probs = [tst.make_problem(spec, sh, seed=s, device=cuda)
+             for s, sh in enumerate([(40, 56, 36), (48, 64, 40)])]
+    members = probs if batched else probs[:1]
+    mop, state, packed = padding.pad_batch(
+        spec, [p[0] for p in members], [p[1] for p in members], (64, 64, 64))
+    arrays, scalars = tir.split_coeffs(mop, packed)
+    assert mop.name == f"{name}+mask"
+    if not batched:
+        state, arrays = (state[0][0], state[1][0]), arrays[0]
+    for fused in (True, False):
+        got, want = _kernel_vs_plain(mop, state, arrays, scalars, 6,
+                                     d_w=d_w, n_f=2, fused=fused)
+        assert_bitwise(got, want)
