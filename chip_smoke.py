@@ -134,10 +134,35 @@ failure so the script exits non-zero:
    the device's idle share) (`diff` lines); 7d,
    launch.fit.run_fit on 7pt-var at 512^3 (`fit` line) and
    launch.fit.main's 10x gate at (8, 12, 10) (`fit_gate` line).
+8. the distributed stepper (distributed.stepper) on a 2x2 mesh whose four
+   shards all sit on the card: 8a, K1 against its plain version, bitwise,
+   on shard-shaped blocks of the 512^3 grid (the extended block with the
+   runtime interior of a corner shard and of an inner-edge shard, and
+   each zone slab of the overlapped schedule) at the shard plan, each
+   kernel_config equal to the fit twin; 8b, run_distributed(plan="auto")
+   at 512^3 x 8 steps, t_block 2, per paper op, synchronous and
+   overlapped, bitwise equal to each other and to ops.naive, and at
+   7pt-var and 25pt-const compress=True within the reference's 5e-2 of
+   naive and not equal to the exact run; 8c, per op the min of 3 turns by
+   CUDA events of the whole call (both schedules), of one super-step's
+   exchange alone, interior K1 launches and boundary K1 launches, and of
+   single-device ops.mwd(plan="auto") on the same problem, with
+   models.super_step_time on those terms, halo_bytes and the exchange's
+   GB/s, K1 launches per call, peak memory and the device split of one
+   overlapped call under torch.profiler (`distributed` lines); 8d,
+   kernels.adjoint.distributed_vjp(plan="auto") at 256^3 x 4 steps for
+   7pt-var and 25pt-var within op.tolerance("f32") of ops.mwd_diff's
+   gradients of the same loss; 8e, ElasticStencilRun on 7pt-var at 512^3
+   (4 steps on 4 shards, save, 2 on 2, save, 2 on 4) bitwise equal to an
+   uninterrupted run and to ops.naive, each shard key tuned once before
+   and no plan measured at a rebuild; 8f, the sweep's distributed leg at
+   512^3 on 4 shards and the scaling lattice, then launch.scaling_gate's
+   verdict, printed as a reading, not a check (its premise, an exchange
+   on a link of its own, does not hold on one card).
 
 Before the last line come one `baseline` JSON line per (op, method) and a
 JSON object with one entry per kernel (K1's launches from phases 4, 4b,
-4c and 7); the last line is
+4c, 7 and 8b); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -2145,6 +2170,422 @@ def phase_differentiable(tally: Tally, dev) -> dict:
     return rows
 
 
+# phase 8: the distributed stepper on a 2x2 mesh of shards, all on the card
+DIST_MESH = (2, 2)
+DIST_TBLOCK = 2
+DIST_COMPRESS_OPS = ("7pt-var", "25pt-const")
+COMPRESS_BUDGET = 5e-2          # the reference's budget against naive
+VJP_GRID = (256, 256, 256)
+VJP_STEPS = 4
+VJP_OPS = ("7pt-var", "25pt-var")
+ELASTIC_OP = "7pt-var"
+DIST_REPS = 3
+
+
+def dist_mesh(dev):
+    from repro_torch.launch import mesh as launch_mesh
+    n = DIST_MESH[0] * DIST_MESH[1]
+    return launch_mesh.make_debug_mesh(DIST_MESH, devices=[dev] * n)
+
+
+def min_ms(fn, reps):
+    """Min ms of `fn` over `reps` turns by CUDA events."""
+    import torch
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return min(times)
+
+
+def check_shard_k1(tally: Tally, dev, spec, plan) -> list:
+    """8a: K1 against its plain version on shard-shaped blocks of the 512^3
+    grid over the 2x2 mesh: the whole extended block with the runtime
+    interior of a corner shard and of an inner-edge shard (a z neighbour
+    on both sides, as on a mesh of four z shards), and each zone slab of
+    the overlapped schedule; every kernel_config equal to the fit twin."""
+    from repro_torch.core import ir
+    from repro_torch.core import stencils as st
+    from repro_torch.distributed import stepper
+    g = spec.radius * DIST_TBLOCK
+    nz_l, ny_l = MAIN_GRID[0] // DIST_MESH[0], MAIN_GRID[1] // DIST_MESH[1]
+    ext = (nz_l + 2 * g, ny_l + 2 * g, MAIN_GRID[2] + 2 * g)
+    part = stepper.partition_geometry((nz_l, ny_l, MAIN_GRID[2]), g, True,
+                                      True)
+    state, coeffs = st.random_problem(spec, ext, seed=5, device=dev)
+    arrays, scalars = ir.split_coeffs(spec, coeffs)
+    blocks = [("corner", (slice(None), slice(None)), (-g, -g)),
+              ("inner-edge", (slice(None), slice(None)), (nz_l - g, -g))]
+    blocks += [(zn.name, (zn.z, zn.y), (zn.origin[0], zn.origin[1]))
+               for zn in part.zones]
+    lines = []
+    for name, (zs, ys), origin in blocks:
+        a, b = (t[zs, ys].contiguous() for t in state)
+        arr = arrays[:, zs, ys].contiguous() if arrays is not None else None
+        pb = stepper.cap_plan_d_w(spec, plan, a.shape[1])
+        interior = stepper.block_interior(spec, MAIN_GRID, g, a.shape, origin)
+        _, bitwise, cfg = tally.kernel_vs_plain(
+            spec, (a, b), arr, scalars, DIST_TBLOCK, d_w=pb.d_w, n_f=pb.n_f,
+            fused=pb.fused, interior=interior, y_domain=(0, a.shape[1]))
+        # the twin prices the default interior, x width nx - 2R: a shard
+        # block's x interior is the global grid's
+        twin = twin_line(spec, cfg, pb.d_w, pb.n_f, MAIN_GRID[2])
+        lines.append({"block": name, "shape": list(a.shape),
+                      "interior": list(interior),
+                      "plan": f"dw{pb.d_w}.nf{pb.n_f}", "bitwise": bitwise,
+                      "config": twin})
+    return lines
+
+
+def check_compressed(spec, mesh, state, coeffs, naive) -> dict:
+    """8b, compressed halos: K1's route synchronous and overlapped and the
+    plain route (the reference's executor, which the CPU tests hold within
+    1e-5 of the reference's compressed output) all bitwise equal, not equal
+    to the exact run; the error against naive beside the reference's
+    budget (`within_budget`, a reading: the budget was set at the
+    reference's test grids)."""
+    from repro_torch.distributed import stepper
+    runs = {key: stepper.run_distributed(
+        spec, mesh, state, coeffs, MAIN_STEPS, DIST_TBLOCK, plan=plan,
+        compress=True, overlap=ovl)
+        for key, plan, ovl in (("k1", "auto", False),
+                               ("k1_overlap", "auto", True),
+                               ("plain", None, False))}
+    for key in ("k1_overlap", "plain"):
+        check(all(same(a, b) for a, b in zip(runs["k1"], runs[key])),
+              f"{spec.name}: compressed {key} != compressed K1 route "
+              f"({first_difference(runs[key], runs['k1'])})")
+    err = max_err(runs["k1"][0], naive[0])
+    check(err > 0.0, f"{spec.name}: the compressed run equals the exact one")
+    return {"err_vs_naive": err, "budget": COMPRESS_BUDGET,
+            "within_budget": err < COMPRESS_BUDGET,
+            "naive_abs_max": float(naive[0].abs().max()),
+            "bitwise_k1_overlap_plain": True}
+
+
+def dist_pieces(spec, mesh, state, coeffs, plan):
+    """One overlapped super-step's pieces as callables: the exchange alone
+    (landed), the interior K1 launches and the boundary K1 launches."""
+    from repro_torch.distributed import halo, stepper
+    gs = stepper.GridSharding(mesh)
+    g = spec.radius * DIST_TBLOCK
+    cur_g = gs.shard(state[0])
+    prev_g = gs.shard(state[1]) if spec.time_order == 2 else cur_g
+    arrays, scalars = stepper.canonical_coeffs(spec, coeffs)
+    hoisted = stepper.make_coeff_extender(spec, DIST_TBLOCK)(
+        (gs.shard(arrays) if arrays is not None else None, scalars))
+    part = stepper.partition_geometry(cur_g[0][0].shape, g, True, True)
+    nz_l, ny_l, _ = part.local_shape
+    ex = stepper._Exchange(spec, g, cur_g, prev_g, None, halo.Wire())
+    cur_e, prev_e = ex.land()
+    azs, ays = slice(g, g + nz_l), slice(g, g + ny_l)
+
+    def exchange():
+        stepper._Exchange(spec, g, cur_g, prev_g, None, halo.Wire()).land()
+
+    def interior():
+        for iz, iy in gs.cells():
+            stepper._mwd_block(spec, plan, scalars, DIST_TBLOCK, MAIN_GRID,
+                               g, ex.cur_x[iz][iy], ex.prev_x[iz][iy],
+                               hoisted.block(iz, iy, g, azs, ays),
+                               (iz * nz_l, iy * ny_l))
+
+    def boundary():
+        for iz, iy in gs.cells():
+            for zn in part.zones:
+                stepper._mwd_block(
+                    spec, plan, scalars, DIST_TBLOCK, MAIN_GRID, g,
+                    cur_e[iz][iy][zn.z, zn.y], prev_e[iz][iy][zn.z, zn.y],
+                    hoisted.block(iz, iy, g, zn.z, zn.y),
+                    (iz * nz_l + zn.origin[0], iy * ny_l + zn.origin[1]))
+
+    return exchange, interior, boundary, part
+
+
+def phase_distributed(tally: Tally, dev) -> dict:
+    """Phase 8, the distributed stepper on a 2x2 mesh over [cuda:0] * 4:
+    8a K1 on shard blocks and zone slabs; 8b run_distributed(plan="auto")
+    at 512^3 x 8 steps per paper op, synchronous and overlapped, bitwise
+    equal to each other and to ops.naive, and compress=True within the
+    reference's budget; 8c the times (`distributed` lines); 8d
+    distributed_vjp against mwd_diff at 256^3; 8e the elastic shrink and
+    grow; 8f the sweep's distributed leg, the scaling lattice and the
+    scaling gate's reading. Returns K1's launches of 8b's runs."""
+    import torch
+    from repro_torch.core import ir, models, registry
+    from repro_torch.core import stencils as st
+    from repro_torch.distributed import halo, stepper
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_mwd as sm
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = dist_mesh(dev)
+    nz_l, ny_l = MAIN_GRID[0] // DIST_MESH[0], MAIN_GRID[1] // DIST_MESH[1]
+    launches, rows = 0, {}
+    for name, spec in st.SPECS.items():
+        plan, source = stepper.resolve_shard_plan(spec, mesh, MAIN_GRID,
+                                                  DIST_TBLOCK)
+        shard_k1 = check_shard_k1(tally, dev, spec, plan)
+        log(f"  8a {name}: K1 = plain bitwise on " + json.dumps(shard_k1))
+        state, coeffs = st.random_problem(spec, MAIN_GRID, seed=0,
+                                          device=dev)
+        run = {}
+        counts = {}
+        for ovl in (False, True):
+            sm.LAUNCHES.count = 0
+            run[ovl] = stepper.run_distributed(
+                spec, mesh, state, coeffs, MAIN_STEPS, DIST_TBLOCK,
+                plan="auto", overlap=ovl)
+            torch.cuda.synchronize()
+            counts[ovl] = sm.LAUNCHES.count
+            launches += counts[ovl]
+        naive = ops.naive(spec, state, coeffs, MAIN_STEPS)
+        check(all(same(a, b) for a, b in zip(run[False], run[True])),
+              f"{name}: overlapped != synchronous at 512^3 "
+              f"({first_difference(run[True], run[False])})")
+        check(all(same(a, b) for a, b in zip(run[False], naive)),
+              f"{name}: distributed != ops.naive at 512^3 "
+              f"({first_difference(run[False], naive)})")
+        del run
+        comp = None
+        if name in DIST_COMPRESS_OPS:
+            comp = check_compressed(spec, mesh, state, coeffs, naive)
+        del naive
+        # 8c: the times
+        call = {ovl: min_ms(lambda ovl=ovl: stepper.run_distributed(
+            spec, mesh, state, coeffs, MAIN_STEPS, DIST_TBLOCK, plan="auto",
+            overlap=ovl), DIST_REPS) for ovl in (False, True)}
+        single_ms = min_ms(lambda: ops.mwd(spec, state, coeffs, MAIN_STEPS,
+                                           plan="auto"), DIST_REPS)
+        exchange, interior, boundary, part = dist_pieces(spec, mesh, state,
+                                                         coeffs, plan)
+        t_exch = min_ms(exchange, DIST_REPS)
+        t_int = min_ms(interior, DIST_REPS)
+        t_bnd = min_ms(boundary, DIST_REPS)
+        n_super = MAIN_STEPS // DIST_TBLOCK
+        g = spec.radius * DIST_TBLOCK
+        streams = 2 if spec.time_order == 2 else 1
+        hb = 4 * halo.halo_bytes((nz_l, ny_l, MAIN_GRID[2]), g, 4, streams)
+        ext = stepper.local_extended_shape(spec, mesh, MAIN_GRID, DIST_TBLOCK)
+        # what the exchange writes: every shard's whole x-padded extended
+        # block (its own cells copied in too), per stream
+        moved = 4 * streams * 4 * ext[0] * ext[1] * ext[2]
+        peak = peak_gb(lambda: stepper.run_distributed(
+            spec, mesh, state, coeffs, MAIN_STEPS, DIST_TBLOCK, plan="auto",
+            overlap=True))
+        split = device_split(lambda: stepper.run_distributed(
+            spec, mesh, state, coeffs, MAIN_STEPS, DIST_TBLOCK, plan="auto",
+            overlap=True))
+        row = {"op": name, "grid": list(MAIN_GRID), "steps": MAIN_STEPS,
+               "mesh": list(DIST_MESH), "t_block": DIST_TBLOCK,
+               "plan": f"dw{plan.d_w}.nf{plan.n_f}."
+                       f"{'fused' if plan.fused else 'row'}",
+               "plan_source": source, "local_extended_shape": list(ext),
+               "sync_ms": call[False], "overlap_ms": call[True],
+               "single_device_mwd_ms": single_ms,
+               "exchange_ms": t_exch, "interior_k1_ms": t_int,
+               "boundary_k1_ms": t_bnd,
+               "sync_super_step_ms": call[False] / n_super,
+               "overlap_super_step_ms": call[True] / n_super,
+               "model_sync_super_step_ms": models.super_step_time(
+                   t_int, t_bnd, t_exch, overlap=False),
+               "model_overlap_super_step_ms": models.super_step_time(
+                   t_int, t_bnd, t_exch, overlap=True),
+               "halo_bytes": hb, "halo_gb_s": hb / t_exch / 1e6,
+               "exchange_written_bytes": moved,
+               "exchange_written_gb_s": moved / t_exch / 1e6,
+               "k1_launches_sync": counts[False],
+               "k1_launches_overlap": counts[True],
+               "peak_gb": peak[0], "peak_over_start_gb": peak[1],
+               "profiled_overlap": split, "compressed": comp,
+               "shard_k1": [{k: v for k, v in ln.items() if k != "config"}
+                            for ln in shard_k1]}
+        rows[name] = row
+        log("distributed " + json.dumps(row))
+        del state, coeffs
+        torch.cuda.empty_cache()
+    log(f"  8a-8c: {time.perf_counter() - t0:.1f} s")
+    rows["vjp"] = dist_vjp(dev, mesh)
+    rows["elastic"] = dist_elastic(dev)
+    rows["sweep"] = dist_sweep(dev)
+    rows["launches"] = launches
+    log(f"phase 8 distributed: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def dist_vjp(dev, mesh) -> dict:
+    """8d: distributed_vjp(plan="auto") against ops.mwd_diff's gradients of
+    the same loss at 256^3 x 4 steps, within op.tolerance("f32")."""
+    import torch
+    from repro_torch.core import ir
+    from repro_torch.core import stencils as st
+    from repro_torch.kernels import adjoint, ops
+    from repro_torch.kernels import stencil_mwd as sm
+    out = {}
+    for name in VJP_OPS:
+        spec = st.SPECS[name]
+        state, coeffs = st.random_problem(spec, VJP_GRID, seed=2, device=dev)
+        arrays, scalars = ir.split_coeffs(spec, coeffs)
+        w = torch.randn(VJP_GRID, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+        sm.LAUNCHES.count = 0
+        outs, vjp = adjoint.distributed_vjp(spec, mesh, state, coeffs,
+                                            VJP_STEPS, t_block=DIST_TBLOCK,
+                                            plan="auto")
+        got = vjp((w, torch.zeros_like(w)))
+        torch.cuda.synchronize()
+        n_k1 = sm.LAUNCHES.count
+        args = [t.clone().requires_grad_() for t in state]
+        arr = arrays.clone().requires_grad_() if arrays is not None else None
+        ref = ops.mwd_diff(spec, tuple(args),
+                           ir.join_coeffs(spec, arr, scalars), VJP_STEPS,
+                           plan="auto")
+        ins = args + ([arr] if arr is not None else [])
+        want = torch.autograd.grad((w * ref[0]).sum(), ins, allow_unused=True)
+        atol, rtol = spec.tolerance("f32")
+        errs, bitwise = [], True
+        for a, b in zip(got, want):
+            if b is None:
+                continue
+            err = max_err(a, b)
+            errs.append(err)
+            bitwise = bitwise and same(a, b)
+            scale = max(float(b.abs().max()), 1.0)
+            check(err <= atol + rtol * scale,
+                  f"{name}: distributed_vjp gradient err {err:.3g} beyond "
+                  f"{(atol, rtol)} x {scale:.3g}")
+        out[name] = {"grid": list(VJP_GRID), "steps": VJP_STEPS,
+                     "max_err": max(errs), "bitwise": bitwise,
+                     "k1_launches": n_k1}
+        del state, coeffs, arrays, w, outs, got, want, ref, args, arr
+        torch.cuda.empty_cache()
+    log("distributed_vjp " + json.dumps(out))
+    return out
+
+
+def dist_elastic(dev) -> dict:
+    """8e: ElasticStencilRun on 7pt-var at 512^3: 4 steps on 4 shards,
+    save, rescale to 2, 2 steps, save, rescale to 4, 2 steps; bitwise equal
+    to an uninterrupted 8-step run and to ops.naive, each shard key tuned
+    once before and resolved from the registry at every rebuild."""
+    import torch
+    from repro_torch.core import autotune, registry
+    from repro_torch.core import stencils as st
+    from repro_torch.distributed import elastic, stepper
+    from repro_torch.kernels import ops
+    from repro_torch.launch import tune
+    t0 = time.perf_counter()
+    spec = st.SPECS[ELASTIC_OP]
+    pool = [dev] * 4
+    state, coeffs = st.random_problem(spec, MAIN_GRID, seed=4, device=dev)
+    reg = registry.default_registry()
+    for n in (4, 2):
+        key = stepper.local_extended_shape(spec, elastic.build_mesh(n, pool),
+                                           MAIN_GRID, DIST_TBLOCK)
+        tune.tune_one(spec, key, reg, word_bytes=4, measured=True,
+                      max_evals=4, n_steps=DIST_TBLOCK, device=dev)
+    t_tune = time.perf_counter() - t0
+    measured = []
+    real = autotune.time_mwd_launch
+
+    def counting(*a, **k):
+        measured.append(1)
+        return real(*a, **k)
+
+    autotune.time_mwd_launch = counting
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            run = elastic.ElasticStencilRun(spec, state, coeffs, d,
+                                            t_block=DIST_TBLOCK, plan="auto",
+                                            overlap="auto", n_devices=4,
+                                            devices=pool)
+            sources = [run.plan_source]
+            run.advance(4)
+            run.save()
+            run.rescale(2)
+            sources.append(run.plan_source)
+            run.advance(2)
+            run.save()
+            run.rescale(4)
+            sources.append(run.plan_source)
+            run.advance(2)
+            got = run.state
+    finally:
+        autotune.time_mwd_launch = real
+    check(not measured, f"elastic: a rebuild measured {len(measured)} plans")
+    check(all(s.startswith("registry") for s in sources),
+          f"elastic: plan sources {sources}")
+    whole = stepper.run_distributed(spec, elastic.build_mesh(4, pool), state,
+                                    coeffs, MAIN_STEPS, DIST_TBLOCK,
+                                    plan="auto", overlap="auto")
+    naive = ops.naive(spec, state, coeffs, MAIN_STEPS)
+    check(all(same(a, b) for a, b in zip(got, whole)),
+          "elastic run != uninterrupted 8-step run")
+    check(all(same(a, b) for a, b in zip(got, naive)),
+          "elastic run != ops.naive")
+    out = {"op": ELASTIC_OP, "grid": list(MAIN_GRID), "plan_sources": sources,
+           "bitwise_vs_uninterrupted": True, "tune_s": t_tune,
+           "seconds": time.perf_counter() - t0}
+    log("elastic " + json.dumps(out))
+    del state, coeffs, got, whole, naive
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_sweep(dev) -> dict:
+    """8f: the sweep's distributed leg at 512^3 x 8 steps for the four paper
+    ops on 4 shards and the scaling lattice, every shard on the card, into
+    a temporary results directory, then the scaling gate's reading (not a
+    check: its premise, an exchange on a link of its own, does not hold on
+    one card)."""
+    import contextlib
+    import io
+    from repro_torch.core import registry
+    from repro_torch.core import stencils as st
+    from repro_torch.launch import scaling_gate, sweep
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dsweep_") as d:
+        points = [sweep.PointSpec(spec, MAIN_GRID, MAIN_STEPS, True, 1, 4,
+                                  distributed=True)
+                  for spec in st.SPECS.values()]
+        summary = sweep.run_sweep_points(
+            points, registry=registry.default_registry(),
+            results_path=os.path.join(d, "sweep.json"), device=dev.type,
+            shards=4, verbose=False)
+        for p in summary["points"].values():
+            log("dist_point " + json.dumps({
+                "stencil": p["stencil"], "plan": p["plan"],
+                "plan_source": p["plan_source"], **{
+                    k: p["measured"][k] for k in (
+                        "t_s", "glups", "n_devices", "cards",
+                        "local_extended_shape")},
+                "model_glups": p["model"]["glups"]}))
+        t_dist = time.perf_counter() - t0
+        path = os.path.join(d, "sweep-scaling.json")
+        sweep.run_sweep_points(sweep.scaling_points(4),
+                               registry=registry.default_registry(),
+                               results_path=path, device=dev.type,
+                               verbose=False)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = scaling_gate.main(["--results", path])
+        pairs = scaling_gate.scaling_pairs(scaling_gate.load_points(path))
+    v = scaling_gate.verdict(pairs)
+    out = {"distributed_points_s": t_dist,
+           "scaling_s": time.perf_counter() - t0 - t_dist,
+           "gate_exit": rc, "gate": v,
+           "pairs": [{k: p[k] for k in ("stencil", "n_devices", "scaling",
+                                        "ratio")} for p in pairs]}
+    log("scaling_gate (a reading: every shard on one card) "
+        + json.dumps(out))
+    return out
+
+
 def time_kernels() -> None:
     """K1, K2 and K3 per paper op at 512^3 x 8, as one JSON line.
 
@@ -2497,6 +2938,7 @@ def main() -> int:
                                                             ptxas)
         phase_sweep(dev)
         diff = phase_differentiable(tally, dev)
+        dist = phase_distributed(tally, dev)
     finally:
         shutil.rmtree(plans, ignore_errors=True)
     k = rows[SERVE_OP]
@@ -2505,7 +2947,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/mwd.cu",
         "replaces": "src/repro/kernels/stencil_mwd.py:69",
         "launches": (served["k1_launches"] + ragged["k1_launches"]
-                     + soaked["k1_launches"] + diff["launches"]),
+                     + soaked["k1_launches"] + diff["launches"]
+                     + dist["launches"]),
         "max_abs_err": tally.max_abs_err["mwd"],
         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

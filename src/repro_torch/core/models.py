@@ -102,6 +102,28 @@ def ghostzone_redundancy(radius: int, t_b: int, block_y: int, block_z: int) -> f
     return total / (t_b * block_y * block_z)
 
 
+def super_step_time(t_interior_s: float, t_boundary_s: float,
+                    t_exchange_s: float, *, overlap: bool) -> float:
+    """Predicted wall time of ONE distributed super-step (Sec. 4.2 analog).
+
+    Both schedules run the same interior/boundary zone split
+    (`distributed.stepper.overlap_work`); they differ only in where the
+    halo exchange sits:
+
+      synchronous: the exchange comes before any dependent compute, so the
+        terms add -> t_exchange + t_interior + t_boundary.
+
+      overlapped: the interior advance runs while the halos travel, and
+        only the boundary completion waits for them
+        -> max(t_interior, t_exchange) + t_boundary.
+
+    The overlapped win saturates at min(t_interior, t_exchange).
+    """
+    if overlap:
+        return max(t_interior_s, t_exchange_s) + t_boundary_s
+    return t_exchange_s + t_interior_s + t_boundary_s
+
+
 def mwd_tile_bytes(spec: StencilSpec, d_w: int, n_f: int, nz: int, nx: int,
                    word_bytes: int = DEFAULT_WORD_BYTES) -> float:
     """Bytes ONE tile of the reference's schedule moves over its sweep.

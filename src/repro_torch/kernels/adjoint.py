@@ -1,6 +1,6 @@
 """Differentiable MWD launches: a structural `torch.autograd.Function` adjoint.
 
-The port of `repro.kernels.adjoint` (without `distributed_vjp`). The fused
+The port of `repro.kernels.adjoint`. The fused
 MWD advance is linear in the solution levels, so its vector-Jacobian
 product is itself a stencil advance: the adjoint operator derived by
 `core.ir.adjoint` (tap offsets negated, variable coefficients transported
@@ -57,7 +57,8 @@ from repro_torch.core.mwd import MWDPlan
 from repro_torch.core.stencils import StencilSpec
 from repro_torch.kernels import stencil_mwd
 
-__all__ = ["mwd_diff", "mwd_diff_batched", "resolve_adjoint_plan"]
+__all__ = ["distributed_vjp", "mwd_diff", "mwd_diff_batched",
+           "resolve_adjoint_plan"]
 
 
 # ---------------------------------------------------------------------------
@@ -508,3 +509,78 @@ def mwd_diff_batched(spec: StencilSpec, states, coeffs, n_steps: int,
     fn = _diff_core(spec, scalars, n_steps, fwd_p, adj_p, acc_dt,
                     batched=True)
     return fn.apply(cur, prev, arrays)
+
+
+def distributed_vjp(spec: StencilSpec, mesh, state, coeffs, n_steps: int, *,
+                    t_block: int = 2, plan: MWDPlan | str | None = None):
+    """Distributed forward advance plus a manual VJP closure (eager).
+
+    Returns ``(outputs, vjp_fn)``: `outputs` is the
+    `distributed.stepper.run_distributed` result and ``vjp_fn((g_cur,
+    g_prev))`` gives ``(d_cur, d_prev, d_arrays)``, the pullback recursion
+    of `mwd_diff` run as explicit ``n_steps=1, t_block=1`` distributed
+    steps of the adjoint operator, with the same reconstruction and saved
+    states per time order. With a plan (an `MWDPlan` or "auto") each of
+    those steps is K1 on the adjoint op per shard; plan=None runs the
+    plain sweeps. The frame and stream-gradient terms run in plain
+    PyTorch on the global tensors, on the first mesh device.
+    """
+    from repro_torch.distributed import stepper
+
+    arrays, scalars = ir.split_coeffs(spec, coeffs)
+    scalars = tuple(float(x) for x in scalars)
+    adj = ir.adjoint(spec)
+    r = spec.radius
+    has_arrays = spec.n_coeff_arrays > 0
+
+    def one_step(op, pair, arrs, scs):
+        packed = ir.join_coeffs(op, arrs, scs)
+        return stepper.run_distributed(op, mesh, pair, packed, 1,
+                                       t_block=1, plan=plan)
+
+    curs = None
+    if spec.time_order == 1 and has_arrays:
+        curs, pair = [], tuple(state)
+        for _ in range(n_steps):            # stack the per-step inputs
+            curs.append(pair[0])
+            pair = one_step(spec, pair, arrays, scalars)
+        outs = pair
+    else:
+        outs = stepper.run_distributed(spec, mesh, tuple(state), coeffs,
+                                       n_steps, t_block=t_block, plan=plan)
+    dev = outs[0].device
+    if has_arrays:
+        arrays = arrays.to(dev)
+        curs = [c.to(dev) for c in curs] if curs is not None else None
+
+    def vjp_fn(cot):
+        G, P = (torch.as_tensor(g, device=dev) for g in cot)
+        adj_arrays, adj_scalars = adj.map_coeffs(arrays, scalars)
+        g_arrays = torch.zeros_like(arrays) if has_arrays else None
+        u, v = outs
+        for t in range(n_steps, 0, -1):
+            ghat = _zero_frame(G, r)
+            if spec.time_order == 2:
+                out = one_step(adj.op, (ghat, -P), adj_arrays,
+                               adj_scalars)[0]
+                g_new = (out
+                         + _frame_shell(adj, adj_arrays, adj_scalars, ghat)
+                         + _frame_only(G + P, r))
+                if has_arrays:
+                    g_arrays = g_arrays + _coeff_grads(spec, v, ghat,
+                                                       arrays, scalars)
+                u, v = v, one_step(spec, (v, u), arrays, scalars)[0]
+                G, P = g_new, -ghat
+            else:
+                out = one_step(adj.op, (ghat, ghat), adj_arrays,
+                               adj_scalars)[0]
+                g_new = (out
+                         + _frame_shell(adj, adj_arrays, adj_scalars, ghat)
+                         + _frame_only(G, r) + P)
+                if has_arrays:
+                    g_arrays = g_arrays + _coeff_grads(spec, curs[t - 1],
+                                                       ghat, arrays, scalars)
+                G, P = g_new, torch.zeros_like(P)
+        return G + _frame_only(P, r), _zero_frame(P, r), g_arrays
+
+    return outs, vjp_fn

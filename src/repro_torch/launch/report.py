@@ -1,15 +1,16 @@
 """Render the port's performance study from its sweep results.
 
-The port of `benchmarks/experiments.py`, single-device sections only:
-`repro_torch.launch.sweep` records measured and model points into versioned
-JSON under ``src/repro_torch/results/``; this module turns them into the
-paper-style tables (GLUP/s vs grid size, Figs. 8-15; B/LUP vs grid size,
-Fig. 4; bf16 against f32; the energy split, Fig. 19; the model against the
-measurement, Sec. 7, for the ECM fit and for K1's phase fit) and writes
-``src/repro_torch/results/REPRODUCTION.md``. Its provenance names the card
-and power limit every point ran on. The distributed, dry-run and roofline
-sections wait for the distributed port and the LM substrate (ROADMAP.md
-items 11 and 13).
+The port of `benchmarks/experiments.py`: `repro_torch.launch.sweep`
+records measured and model points into versioned JSON under
+``src/repro_torch/results/``; this module turns them into the paper-style
+tables (GLUP/s vs grid size, Figs. 8-15; B/LUP vs grid size, Fig. 4; bf16
+against f32; the energy split, Fig. 19; the model against the
+measurement, Sec. 7, for the ECM fit and for K1's phase fit; the
+distributed leg, the strong/weak scaling ladder and the overlap model's
+residuals, Sec. 4.2) and writes ``src/repro_torch/results/REPRODUCTION.md``.
+Its provenance names the card and power limit every point ran on, and the
+distributed sections say how many cards their shards shared. The dry-run
+and roofline sections wait for the LM substrate (ROADMAP.md item 13).
 
 ``--check`` re-renders from the committed results and fails (exit 2) when
 the committed report drifts.
@@ -69,6 +70,8 @@ def _grid_str(p: dict) -> str:
 
 def _plan_str(p: dict) -> str:
     pl = p["plan"]
+    if pl is None:          # plain-route points (the scaling legs)
+        return "-"
     return f"dw{pl['d_w']}.nf{pl['n_f']}" + ("" if pl["fused"] else ".row")
 
 
@@ -222,6 +225,149 @@ def k1_residual_table(report: dict) -> str:
 # The report
 # ---------------------------------------------------------------------------
 
+def distributed_table(pts: list[dict]) -> str:
+    """Deep-halo super-stepper leg rows."""
+    rows = ["| stencil | grid | devices | t_block | plan | measured GLUP/s "
+            f"| {MODEL_LABEL} GLUP/s |",
+            "|---|---|---|---|---|---|---|"]
+    for p in pts:
+        m = p["measured"]
+        rows.append(
+            f"| {p['stencil']} | {_grid_str(p)} | {m['n_devices']} "
+            f"| {m['t_block']} | {_plan_str(p)} | {m['glups']:.5f} "
+            f"| {p['model']['glups']:.2f} |")
+    return "\n".join(rows)
+
+
+def _scaling_legs(pts: list[dict]) -> dict[tuple, dict]:
+    """(stencil, regime, n_devices) -> {"sync": point, "overlap": point}."""
+    legs: dict[tuple, dict] = {}
+    for p in pts:
+        m = p["measured"]
+        ident = (p["stencil"], m["scaling"], m["n_devices"])
+        legs.setdefault(ident, {})["overlap" if m.get("overlap")
+                                   else "sync"] = p
+    return legs
+
+
+def _paired_ratio(sides: dict) -> float | None:
+    """Overlapped/sync speed ratio, drift-free when paired timing exists."""
+    if "overlap" not in sides or "sync" not in sides:
+        return None
+    om = sides["overlap"]["measured"]
+    if om.get("paired_sync_t_s"):
+        return om["paired_sync_t_s"] / om["t_s"]
+    return om["glups"] / sides["sync"]["measured"]["glups"]
+
+
+def _best_sync_t(sides: dict) -> float | None:
+    """Fastest synchronous-leg seconds of one rung: the standalone sync
+    point or the overlapped point's paired sync session, whichever is
+    lower (noise only adds time)."""
+    ts = []
+    if "sync" in sides:
+        ts.append(sides["sync"]["measured"]["t_s"])
+    om = sides.get("overlap", {}).get("measured", {})
+    if om.get("paired_sync_t_s"):
+        ts.append(om["paired_sync_t_s"])
+    return min(ts) if ts else None
+
+
+def _sync_glups(sides: dict) -> float | None:
+    """Synchronous-leg GLUP/s at the `_best_sync_t` measurement."""
+    t = _best_sync_t(sides)
+    if t is None or "sync" not in sides:
+        return None
+    sm = sides["sync"]["measured"]
+    return sm["glups"] * sm["t_s"] / t
+
+
+def scaling_table(pts: list[dict]) -> str:
+    """Strong/weak ladder: sync vs overlapped throughput per mesh size.
+
+    ``ovl/sync`` is the gate's ratio; ``par eff`` is the synchronous leg's
+    GLUP/s(n) / (n * GLUP/s(1)) within the same (stencil, regime) ladder.
+    """
+    legs = _scaling_legs(pts)
+    base = {(st, reg): _sync_glups(sides)
+            for (st, reg, n), sides in legs.items() if n == 1}
+    rows = ["| stencil | regime | grid | devices | sync GLUP/s "
+            "| overlap GLUP/s | ovl/sync | par eff |",
+            "|---|---|---|---|---|---|---|---|"]
+    for (st, reg, n), sides in sorted(legs.items()):
+        syn = _sync_glups(sides)
+        if syn is None:
+            continue
+        ovl = (f"{sides['overlap']['measured']['glups']:.5f}"
+               if "overlap" in sides else "-")
+        ratio = _paired_ratio(sides)
+        ratio_s = f"{ratio:.3f}" if ratio is not None else "-"
+        b = base.get((st, reg))
+        eff = f"{syn / (n * b):.0%}" if b else "-"
+        rows.append(
+            f"| {st} | {reg} | {_grid_str(sides['sync'])} | {n} "
+            f"| {syn:.5f} | {ovl} | {ratio_s} | {eff} |")
+    return "\n".join(rows)
+
+
+def overlap_model_table(pts: list[dict]) -> str:
+    """`models.super_step_time` against the measured overlapped super-step.
+
+    Per (stencil, regime) ladder the per-cell sweep cost is calibrated on
+    the one-shard synchronous rung (no exchange there), each rung's
+    exchange time is inferred from its synchronous leg (measured super-step
+    less its swept cells' cost), and the overlapped super-step is predicted
+    as ``max(t_interior, t_exchange) + t_boundary``; the residual is
+    (predicted - measured) / measured.
+    """
+    legs = _scaling_legs(pts)
+    t_cell = {}
+    for (st, reg, n), sides in legs.items():
+        t = _best_sync_t(sides)
+        if n == 1 and t is not None and "sync" in sides:
+            m = sides["sync"]["measured"]
+            t_super = t / m["n_super_steps"]
+            t_cell[(st, reg)] = t_super / (m["overlap_work"]["sync_cells"]
+                                           * m["t_block"])
+    rows = ["| stencil | regime | devices | t_exch ms | interior ms "
+            "| boundary ms | predicted ovl ms | measured ovl ms "
+            "| residual |",
+            "|---|---|---|---|---|---|---|---|---|"]
+    for (st, reg, n), sides in sorted(legs.items()):
+        tc = t_cell.get((st, reg))
+        if tc is None or "overlap" not in sides or "sync" not in sides:
+            continue
+        om, sm = sides["overlap"]["measured"], sides["sync"]["measured"]
+        w = om["overlap_work"]
+        t_int = w["interior_cells"] * om["t_block"] * tc
+        t_bnd = w["boundary_cells"] * om["t_block"] * tc
+        t_sync_super = _best_sync_t(sides) / sm["n_super_steps"]
+        t_exch = max(0.0, t_sync_super
+                     - w["sync_cells"] * sm["t_block"] * tc)
+        pred = models.super_step_time(t_int, t_bnd, t_exch, overlap=True)
+        meas = om["t_s"] / om["n_super_steps"]
+        rows.append(
+            f"| {st} | {reg} | {n} | {t_exch * 1e3:.3f} "
+            f"| {t_int * 1e3:.3f} | {t_bnd * 1e3:.3f} | {pred * 1e3:.3f} "
+            f"| {meas * 1e3:.3f} | {(pred - meas) / meas:+.0%} |")
+    return "\n".join(rows)
+
+
+def _cards_note(pts: list[dict]) -> list[str]:
+    """How many devices the shards of these points shared."""
+    cards = sorted({p["measured"].get("cards", 0) for p in pts})
+    names = sorted({(p.get("device") or {}).get("name", "?") for p in pts})
+    if cards == [1]:
+        return [f"Every shard of every point sat on ONE device "
+                f"({', '.join(names)}): the halo exchange is",
+                "device-to-device copies there, so these rows measure the "
+                "cost of the decomposition",
+                "(copies, halo redundancy, more launches), not scaling "
+                "across devices."]
+    return [f"Devices per point: {', '.join(map(str, cards))} "
+            f"({', '.join(names)})."]
+
+
 def _rate(x) -> str:
     return "inf" if x == float("inf") else f"{x:.3e}"
 
@@ -229,8 +375,11 @@ def _rate(x) -> str:
 def render(results_dir: str = RESULTS_DIR) -> str:
     """Render the whole REPRODUCTION.md report from `results_dir`."""
     sweeps = load_sweeps(results_dir)
-    pts = [p for p in _sorted_points(sweeps["points"])
-           if not p.get("distributed")]
+    all_pts = _sorted_points(sweeps["points"])
+    pts = [p for p in all_pts if not p.get("distributed")]
+    dist = [p for p in all_pts if p.get("distributed")]
+    scaling_pts = [p for p in dist if p["measured"].get("scaling")]
+    dist_pts = [p for p in dist if not p["measured"].get("scaling")]
     calib = residuals = None
     if len(pts) >= 3:
         fit_pts = [{"key": p["key"], "flops": p["flops"],
@@ -260,7 +409,9 @@ def render(results_dir: str = RESULTS_DIR) -> str:
     out.append("## Provenance")
     out.append("")
     out.append(f"- results files: {', '.join(sweeps['files']) or '(none)'}")
-    out.append(f"- sweep points: {len(pts)} single-launch")
+    out.append(f"- sweep points: {len(pts)} single-launch"
+               + (f", {len(dist_pts)} distributed, {len(scaling_pts)} "
+                  f"scaling" if dist else ""))
     out.append("- cards (nvidia-smi name, power limit): "
                + ("; ".join(sweeps["devices"]) or "(none)"))
     out.append("- device specs: "
@@ -270,7 +421,10 @@ def render(results_dir: str = RESULTS_DIR) -> str:
                   or "(none)"))
     out.append("- regenerate: `python -m repro_torch.launch.sweep --sizes "
                "128,256,384,512,640,768 --steps 8 --tune measured` (and the "
-               "bf16 leg) then `python -m repro_torch.launch.report`")
+               "bf16 leg"
+               + (", the `--sizes 512 --steps 8 --distributed --shards 4` "
+                  "leg and `--scaling`" if dist else "")
+               + ") then `python -m repro_torch.launch.report`")
     out.append("")
     f32 = [p for p in pts if p.get("dtype", "f32") == "f32"]
     by_st = _by_stencil(f32)
@@ -391,6 +545,46 @@ def render(results_dir: str = RESULTS_DIR) -> str:
         out.append("")
         out.append(k1_residual_table(k1_res))
     out.append("")
+    if dist_pts:
+        out.append("## 5. Distributed super-stepper leg")
+        out.append("")
+        out.append("Deep-halo super-steps (`repro_torch.distributed.stepper`)"
+                   ", synchronous, one K1 advance per")
+        out.append("shard per halo exchange, the plan resolved against each "
+                   "shard's extended block.")
+        out += _cards_note(dist_pts)
+        out.append("")
+        out.append(distributed_table(dist_pts))
+        out.append("")
+    if scaling_pts:
+        out.append("## 5b. Strong/weak scaling: overlapped vs synchronous "
+                   "super-steps")
+        out.append("")
+        out.append("`python -m repro_torch.launch.sweep --scaling` walks the "
+                   "shard ladder 1 -> 2 -> 4 -> 8")
+        out.append("twice per stencil: STRONG (fixed global grid, shards "
+                   "shrink) and WEAK (fixed per-shard")
+        out.append("block, grid grows with the shard count), each rung timed "
+                   "synchronously and overlapped (the")
+        out.append("interior advance beside the halo copies) on the plain "
+                   "route; `ovl/sync` is the interleaved")
+        out.append("paired ratio `python -m repro_torch.launch.scaling_gate` "
+                   "holds on the largest mesh.")
+        out += _cards_note(scaling_pts)
+        out.append("")
+        out.append(scaling_table(scaling_pts))
+        out.append("")
+        out.append("### Overlap-model residuals (Sec. 4.2 analog)")
+        out.append("")
+        out.append("`repro_torch.core.models.super_step_time` predicts the "
+                   "overlapped super-step as")
+        out.append("`max(t_interior, t_exchange) + t_boundary`, the per-cell "
+                   "cost calibrated on each ladder's")
+        out.append("one-shard synchronous rung and `t_exchange` inferred per "
+                   "rung from its synchronous leg.")
+        out.append("")
+        out.append(overlap_model_table(scaling_pts))
+        out.append("")
     return "\n".join(out).rstrip() + "\n"
 
 

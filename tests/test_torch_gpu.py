@@ -17,6 +17,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import stencil_fused as tfused
 from repro_torch.kernels import stencil_mwd as tkern
 from repro_torch.kernels import stencil_sweep as tsweep
+from repro_torch.kernels._host import edge_pad
 
 
 def aniso11(irmod):
@@ -613,3 +614,87 @@ def test_kernel_on_mask_twins_equals_plain_version(cuda, name, batched):
         got, want = _kernel_vs_plain(mop, state, arrays, scalars, 6,
                                      d_w=d_w, n_f=2, fused=fused)
         assert_bitwise(got, want)
+
+
+def _dist_mesh(cuda):
+    from repro_torch.launch import mesh as tmesh
+    return tmesh.make_debug_mesh((2, 2), devices=[cuda] * 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(tst.SPECS))
+@pytest.mark.parametrize("block", ["corner", "z_lo", "y_hi"])
+def test_kernel_on_shard_blocks_equals_plain_version(cuda, name, block):
+    """K1 on a 2x2 mesh's shard shapes: a corner shard's extended block and
+    zone slabs 3g thick, with the runtime interior and ``y_domain = (0,
+    bny)`` the distributed stepper gives it."""
+    from repro_torch.core.mwd import MWDPlan
+    from repro_torch.distributed import stepper
+    spec = tst.SPECS[name]
+    grid = (64, 64, 40)
+    g = 2 * spec.radius
+    part = stepper.partition_geometry((32, 32, 40), g, True, True)
+    ext = (32 + 2 * g, 32 + 2 * g, 40 + 2 * g)
+    state, coeffs = tst.make_problem(spec, ext, seed=4, device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    zs, ys, origin = slice(None), slice(None), (-g, -g)
+    if block != "corner":
+        zn = next(z for z in part.zones if z.name == block)
+        zs, ys, origin = zn.z, zn.y, zn.origin
+    a, b = (t[zs, ys].contiguous() for t in state)
+    arr = arrays[:, zs, ys].contiguous() if arrays is not None else None
+    plan = stepper.cap_plan_d_w(spec, MWDPlan(d_w=8, n_f=2), a.shape[1])
+    got, want = _kernel_vs_plain(
+        spec, (a, b), arr, scalars, 2, d_w=plan.d_w, n_f=plan.n_f,
+        fused=True,
+        interior=stepper.block_interior(spec, grid, g, a.shape, origin),
+        y_domain=(0, a.shape[1]))
+    assert_bitwise(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(tst.SPECS))
+def test_distributed_k1_route_equals_naive(cuda, name):
+    """run_distributed on four shards of one card, K1 per shard, both
+    schedules, a trailing partial super-step: bitwise equal to ops.naive;
+    compressed halos within the reference's 5e-2."""
+    from repro_torch.core.mwd import MWDPlan
+    from repro_torch.distributed import stepper
+    spec = tst.SPECS[name]
+    grid = (48, 48, 40) if spec.radius == 1 else (72, 72, 40)
+    state, coeffs = tst.make_problem(spec, grid, seed=6, device=cuda)
+    mesh = _dist_mesh(cuda)
+    plan = MWDPlan(d_w=2 * spec.radius * 2, n_f=2)
+    want = tops.naive(spec, state, coeffs, 5)
+    before = tkern.LAUNCHES.count
+    for ovl in (False, True):
+        got = stepper.run_distributed(spec, mesh, state, coeffs, 5, 2,
+                                      plan=plan, overlap=ovl)
+        torch.cuda.synchronize()
+        assert_bitwise(got, want)
+    assert tkern.LAUNCHES.count > before
+    lossy = stepper.run_distributed(spec, mesh, state, coeffs, 4, 2,
+                                    plan=plan, compress=True, overlap=True)
+    exact = tops.naive(spec, state, coeffs, 4)
+    err = float((lossy[0] - exact[0]).abs().max())
+    assert 0.0 < err < 5e-2
+
+
+@pytest.mark.gpu
+def test_halo_exchange_copies_on_one_card(cuda):
+    """On one card the exchange still copies: every receive buffer is new
+    storage, written on the communication stream, equal to the slab."""
+    from repro_torch.distributed import halo
+    x = torch.randn((16, 12, 8), device=cuda)
+    blocks = [x[:8].contiguous(), x[8:].contiguous()]
+    parts = halo.exchange_axis_parts(blocks, 0, 3)
+    torch.cuda.synchronize()
+    lo = parts[1][0]
+    assert lo.data_ptr() != blocks[0].data_ptr()
+    assert not (blocks[0].data_ptr() <= lo.data_ptr()
+                < blocks[0].data_ptr() + blocks[0].numel() * 4)
+    assert torch.equal(lo, blocks[0][-3:])
+    ext = halo.exchange_2d([[b] for b in blocks], 2)
+    torch.cuda.synchronize()
+    want = edge_pad(blocks[0][-2:], ((0, 0), (2, 2), (0, 0)))
+    assert torch.equal(ext[1][0][:2], want)

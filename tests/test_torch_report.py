@@ -173,3 +173,104 @@ def test_precision_gate_equals_reference(case, tmp_path):
             case in ("ratio", "missing"))
     assert tgate.residual_gate(tgate.load_points(path), 3.0) == \
         rgate.residual_gate(rgate.load_points(path), 3.0)
+
+
+def dist_point(stencil, grid, n, t_s, *, overlap=False, scaling=None,
+               paired=None):
+    """A distributed sweep point in the port's schema (made-up time)."""
+    from repro_torch.distributed import halo, stepper
+    from repro_torch.launch import mesh as tmesh
+    import torch
+    spec = tst.SPECS[stencil]
+    ps = tsweep.PointSpec(spec, grid, 8, True, 1, 4, distributed=True,
+                          n_devices=n if scaling else None, overlap=overlap,
+                          scaling=scaling)
+    mesh = tmesh.make_mesh((1, n), ("data", "model"),
+                           devices=[torch.device("cpu")] * n)
+    local = (grid[0], grid[1] // n, grid[2])
+    measured = {"t_s": t_s, "glups": 0.0, "n_devices": n, "t_block": 2,
+                "n_super_steps": 4, "overlap": overlap,
+                "local_extended_shape": list(stepper.local_extended_shape(
+                    spec, mesh, grid, 2)),
+                "overlap_work": stepper.overlap_work(
+                    local, spec.radius, 2, split_z=False, split_y=n > 1),
+                "halo_bytes": halo.halo_bytes(local, 2 * spec.radius, 4, 1),
+                "cards": 1}
+    if scaling:
+        measured["scaling"] = scaling
+    if paired is not None:
+        measured["paired_sync_t_s"] = paired
+    plan = None if scaling else MWDPlan(d_w=8, n_f=2)
+    modeled = (tsweep._scaling_model(ps, measured) if scaling
+               else tsweep._distributed_model(ps, plan, measured))
+    measured["glups"] = modeled["lups"] / t_s / 1e9
+    point = {"key": ps.key, "stencil": stencil, "grid": list(grid),
+             "distributed": True, "mode": "fused", "batch": 1,
+             "plan": None if plan is None else {
+                 "d_w": 8, "n_f": 2, "t_block": 0, "tg_x": 1, "block_x": 0,
+                 "fused": True},
+             "plan_source": "none-plain" if scaling else "model",
+             "device": {"name": "NVIDIA H100 80GB HBM3",
+                        "power_limit": "700.00 W"},
+             "measured": measured}
+    point.update(modeled)
+    return point
+
+
+def dist_points():
+    pts = [dist_point("7pt-var", (64, 64, 64), 4, 3e-3),
+           dist_point("25pt-const", (64, 64, 64), 4, 5e-3)]
+    for stencil in ("7pt-const", "25pt-const"):
+        for n in (1, 2, 4):
+            for regime, grid in (("strong", (32, 128, 32)),
+                                 ("weak", (32, 32 * n, 32))):
+                t = 1e-3 * n * (1.2 if regime == "strong" else 1.0)
+                pts.append(dist_point(stencil, grid, n, t, scaling=regime))
+                pts.append(dist_point(stencil, grid, n, 0.9 * t,
+                                      overlap=True, scaling=regime,
+                                      paired=1.05 * t))
+    return pts
+
+
+def test_distributed_tables_equal_the_references_strings():
+    pts = dist_points()
+    dist = [p for p in pts if not p["measured"].get("scaling")]
+    scaling = [p for p in pts if p["measured"].get("scaling")]
+    assert trep.distributed_table(dist) == ref_label(
+        rrep.distributed_table(dist))
+    assert trep.scaling_table(scaling) == rrep.scaling_table(scaling)
+    assert trep.overlap_model_table(scaling) == \
+        rrep.overlap_model_table(scaling)
+    assert "| 7pt-const | strong | 32x128x32 | 4 |" in \
+        trep.scaling_table(scaling)
+
+
+def test_render_distributed_sections(tmp_path):
+    results = write_results(tmp_path, fixture_points())
+    write_results(tmp_path, dist_points(), name="sweep-scaling.json")
+    text = trep.render(results)
+    for heading in ("## 5. Distributed super-stepper leg",
+                    "## 5b. Strong/weak scaling",
+                    "### Overlap-model residuals"):
+        assert heading in text, heading
+    assert "sat on ONE device (NVIDIA H100 80GB HBM3)" in text
+    assert "2 distributed, 24 scaling" in text
+
+
+def test_scaling_gate_equals_reference(tmp_path):
+    from benchmarks import scaling_gate as rsg
+    from repro_torch.launch import scaling_gate as tsg
+    pts = {p["key"]: p for p in dist_points()}
+    assert tsg.scaling_pairs(pts) == rsg.scaling_pairs(pts)
+    path = str(tmp_path / "sweep-scaling.json")
+    with open(path, "w") as f:
+        json.dump({"points": pts}, f)
+    for extra in ([], ["--min-ratio", "1.3"], ["--min-pair-ratio", "1.2"],
+                  ["--min-ratio", "1.1"]):
+        assert tsg.main(["--results", path] + extra) == \
+            rsg.main(["--results", path] + extra), extra
+    v = tsg.verdict(tsg.scaling_pairs(pts))
+    assert v["ok"] and v["n_devices"] == 4 and v["pairs"] == 4
+    with open(path, "w") as f:
+        json.dump({"points": {}}, f)
+    assert tsg.main(["--results", path]) == 1

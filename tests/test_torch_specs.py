@@ -147,6 +147,14 @@ def test_modules_import_no_jax_and_no_reference():
             "import repro_torch.core.autotune, repro_torch.core.registry\n"
             "import repro_torch.core.traffic, repro_torch.launch.tune\n"
             "import repro_torch.kernels.ops, repro_torch.launch.serve\n"
+            "import repro_torch.distributed.stepper\n"
+            "import repro_torch.distributed.halo\n"
+            "import repro_torch.distributed.compression\n"
+            "import repro_torch.distributed.checkpoint\n"
+            "import repro_torch.distributed.elastic\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.scaling_gate\n"
+            "import repro_torch.launch.sweep, repro_torch.launch.report\n"
+            "import repro_torch.kernels.adjoint\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
             "       or m.startswith(('jax.', 'repro.'))]\n"
             "print(bad)\n")

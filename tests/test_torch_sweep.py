@@ -6,8 +6,8 @@ points. `run_sweep` runs on the CPU at tiny grids (`device="cpu"`: the
 plain version of K1 behind `ops.mwd`) and must write every key of the
 reference's results schema with the same types, resume to zero
 measurements, and fit and save the ECM calibration as the reference does.
-The distributed leg and the scaling lattice wait for the distributed port
-and must refuse loudly.
+The distributed leg and the scaling lattice run on CPU shards and record
+the reference's measured keys; a fixed lattice refuses lattice flags.
 """
 
 import json
@@ -153,15 +153,76 @@ def test_sweep_cli_expect_cached_and_stale_points(tmp_path, monkeypatch):
     assert tsweep.main(argv[:-1] + [other])["n_measured"] == 0
 
 
-@pytest.mark.parametrize("flag", ["--distributed", "--scaling"])
+@pytest.mark.parametrize("flag", ["--distributed", "--shards"])
 def test_distributed_and_scaling_refuse(flag, capsys):
+    """The scaling lattice is fixed: it refuses lattice flags, as the
+    reference's does; a distributed point whose grid does not split over
+    its shards refuses with the reference's message."""
+    argv = ["--device", "cpu", "--scaling", flag] + (
+        ["4"] if flag == "--shards" else [])
     with pytest.raises(SystemExit) as e:
-        tsweep.main(["--device", "cpu", flag])
+        tsweep.main(argv)
     assert e.value.code != 0
-    assert "ROADMAP.md item 11" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 11"):
+    assert f"--scaling runs a fixed lattice; drop {flag}" in \
+        capsys.readouterr().err
+    with pytest.raises(ValueError, match="does not decompose evenly"):
         tsweep.run_sweep([tst.SPECS["7pt-const"]], [(6, 10, 8)],
-                         distributed=True, device="cpu")
+                         distributed=True, device="cpu", shards=4,
+                         verbose=False, results_path="/nonexistent/x.json")
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_distributed_keys_and_lattices_equal_reference(name):
+    rspec, tspec = pair(name)
+    for n in (None, 1, 4):
+        for ovl in (False, True):
+            for scaling in (None, "strong", "weak"):
+                args = ((8, 8, 8), 2, True, 1, 4)
+                assert tsweep.point_key(
+                    tspec, *args, distributed=True, n_devices=n,
+                    overlap=ovl, scaling=scaling) == rsweep.point_key(
+                    rspec, *args, distributed=True, n_devices=n,
+                    overlap=ovl, scaling=scaling)
+    got = tsweep.iter_points([tspec], tsweep.ladder((8, 12)), ("fused",),
+                             (1,), 8, 4, "f32", True)
+    want = rsweep.iter_points([rspec], rsweep.ladder((8, 12)), ("fused",),
+                              (1,), 8, 4, distributed=True)
+    assert [p.key for p in got] == [p.key for p in want]
+    assert [p.key for p in tsweep.scaling_points(4)] == \
+        [p.key for p in rsweep.scaling_points(4)]
+    assert tsweep.SCALING_DEVICE_LADDER == rsweep.SCALING_DEVICE_LADDER
+
+
+def test_distributed_and_scaling_points_on_cpu_shards(tmp_path, monkeypatch):
+    """One distributed point (4 CPU shards, K1's plain version per shard)
+    and one overlapped scaling leg: the reference's measured keys, the
+    model columns, resume."""
+    monkeypatch.setenv(treg.ENV_VAR, str(tmp_path / "plans.json"))
+    path = str(tmp_path / "results" / "sweep-scaling.json")
+    spec = tst.SPECS["7pt-const"]
+    points = [tsweep.PointSpec(spec, (8, 16, 12), 4, True, 1, 4,
+                               distributed=True),
+              tsweep.PointSpec(spec, (8, 32, 12), 4, True, 1, 4,
+                               distributed=True, n_devices=4, overlap=True,
+                               scaling="strong")]
+    kw = dict(registry=treg.default_registry(), results_path=path, reps=1,
+              warmup=0, verbose=False, device="cpu", shards=4)
+    first = tsweep.run_sweep_points(points, **kw)
+    assert first["n_measured"] == 2
+    dist = first["points"][points[0].key]
+    leg = first["points"][points[1].key]
+    for p in (dist, leg):
+        m = p["measured"]
+        assert {"t_s", "glups", "n_devices", "t_block", "n_super_steps",
+                "local_extended_shape", "overlap", "overlap_work",
+                "halo_bytes"} <= set(m)
+        assert m["n_devices"] == 4 and m["cards"] == 1
+        assert p["distributed"] and p["device"]["name"] == "cpu"
+    assert dist["plan"]["d_w"] >= 2 and dist["plan_source"] == "model"
+    assert dist["measured"]["local_extended_shape"] == [12, 8, 16]
+    assert leg["plan"] is None and leg["measured"]["scaling"] == "strong"
+    assert leg["measured"]["paired_sync_t_s"] > 0
+    assert tsweep.run_sweep_points(points, **kw)["n_measured"] == 0
 
 
 def test_smoke_profile_equals_reference_less_its_distributed_point():
