@@ -159,10 +159,23 @@ failure so the script exits non-zero:
    512^3 on 4 shards and the scaling lattice, then launch.scaling_gate's
    verdict, printed as a reading, not a check (its premise, an exchange
    on a link of its own, does not hold on one card).
+9. the paper's benchmark harness (repro_torch.benchmarks.run) at its card
+   sizes, every bench but the soak (4c runs it), its gates raising, in the
+   run's registry: Fig. 4, Tables I/II with ops.mwd at the model's plan
+   measured at 512^3 x 8, Figs. 8-15 (naive, K2, K3, K1 at the
+   reference's dw8/dw16 and plan="auto" at 128^3-512^3 x 4), Figs. 16-18
+   (the model at 1024^3 for every cluster size, then K1 alone at 512^3 x
+   8 at each cluster size requested through stencil_mwd.prepare(cluster=)
+   for the registry's plan and the reference's dw32.nf2, each launch
+   bitwise equal to its plain version, its configuration the fit twin's,
+   each refusal one the twin predicts), Fig. 19, the tuner, fused vs
+   per-row at 512^3, tuned vs default at 512^3, smoke, the 19-point box op
+   at 512^3, batched serving at 128^3 and adjoint_fit; a `bench` line per
+   CSV row and a `groupsize` line per op (7pt-const, 25pt-var).
 
 Before the last line come one `baseline` JSON line per (op, method) and a
 JSON object with one entry per kernel (K1's launches from phases 4, 4b,
-4c, 7 and 8b); the last line is
+4c, 7, 8b and 9; K2's and K3's from 5b and 9); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -2586,6 +2599,94 @@ def dist_sweep(dev) -> dict:
     return out
 
 
+GROUPSIZE_KEYS = ("cluster", "slab", "stage", "threads", "smem_bytes")
+
+
+def groupsize_line(op: str, rows) -> dict:
+    """Phase 9's `groupsize` line of one op: the model leg at each cluster
+    size, then K1 measured at each size per plan, each beside the model."""
+    model = [{k: r.data[k] for k in ("cluster", "fits", "model_ms",
+                                     "smem_bytes", "ctas_sm")}
+             for r in rows if r.data.get("op") == op and ".k1." not in r.name]
+    measured = {}
+    for r in rows:
+        if r.data.get("op") != op or ".k1." not in r.name:
+            continue
+        d = r.data
+        entry = {"cluster": d["cluster"], "fits": d["fits"]}
+        if d["fits"]:
+            cfg = d["config"]
+            entry.update(k1_ms=d["k1_ms"], model_ms=d["model_ms"],
+                         smem_bytes=cfg["smem_bytes"],
+                         ctas_sm=d["twin"]["per_sm"],
+                         max_active_clusters=cfg["max_active_clusters"],
+                         slab=cfg["slab"], threads=cfg["threads"],
+                         bitwise=d["bitwise"])
+        else:
+            entry["refused"] = d["refused"]
+        measured.setdefault(d["plan"], []).append(entry)
+    return {"op": op, "model_grid": "1024^3x8", "model": model,
+            "k1_grid": "512^3x8", "measured": measured}
+
+
+def phase_benches(dev) -> dict:
+    """Phase 9: the paper's benchmark harness (repro_torch.benchmarks.run)
+    at its card sizes, every bench but the soak (phase 4c runs it), in the
+    run's own registry (phase 2b's measured entries at 512^3). One `bench`
+    line per CSV row; a failed gate raises. One `groupsize` line per op;
+    each K1 launch at a requested cluster is bitwise equal to its plain
+    version (the bench's gate), its configuration the fit twin's at that
+    size, and each refusal one the twin predicts. Returns the K1, K2 and
+    K3 launches of the benches (the bench's comparisons with the plain
+    versions excluded) and the groupsize lines."""
+    import torch
+    from repro_torch.benchmarks import run as bench
+    from repro_torch.kernels import stencil_fused as fu
+    from repro_torch.kernels import stencil_mwd as sm
+    from repro_torch.kernels import stencil_sweep as sw
+    t0 = time.perf_counter()
+    mods = {"mwd": sm, "sweep": sw, "fused": fu}
+    b = bench.Bench(dev, echo=False)
+    seconds = {}
+    for m in mods.values():
+        m.LAUNCHES.count = 0
+    for name, fn in bench.BENCHES.items():
+        if name == "soak":
+            continue
+        t = time.perf_counter()
+        first = len(b.rows)
+        fn(b)
+        for r in b.rows[first:]:
+            log("bench " + json.dumps({"bench": name, "name": r.name,
+                                       "us_per_call": r.us,
+                                       "derived": r.derived}))
+        seconds[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    launches = {k: m.LAUNCHES.count for k, m in mods.items()}
+    lines = {}
+    for op in ("7pt-const", "25pt-var"):
+        k1 = [r for r in b.rows
+              if r.data.get("op") == op and ".k1." in r.name]
+        for r in k1:
+            d = r.data
+            what = f"{op} {d['plan']} cluster {d['cluster']}"
+            if d["fits"]:
+                check(d["bitwise"], f"{what}: K1 != its plain version")
+                check(d["twin"] is not None and all(
+                    d["config"][k] == d["twin"][k] for k in GROUPSIZE_KEYS),
+                      f"{what}: kernel {d['config']} vs fit twin {d['twin']}")
+            elif d["refused"] in ("E_SMEM", "E_CLUSTER_SIZE"):
+                check(d["twin"] is None,
+                      f"{what}: refused {d['refused']}, twin {d['twin']}")
+        check(sum(r.data["fits"] for r in k1) >= 2,
+              f"{op}: fewer than two cluster sizes measured")
+        lines[op] = groupsize_line(op, b.rows)
+        log("groupsize " + json.dumps(lines[op]))
+    log(f"phase 9 benches: {json.dumps(seconds)}; launches "
+        f"{json.dumps(launches)}; {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "groupsize": lines}
+
+
 def time_kernels() -> None:
     """K1, K2 and K3 per paper op at 512^3 x 8, as one JSON line.
 
@@ -2939,6 +3040,7 @@ def main() -> int:
         phase_sweep(dev)
         diff = phase_differentiable(tally, dev)
         dist = phase_distributed(tally, dev)
+        benches = phase_benches(dev)
     finally:
         shutil.rmtree(plans, ignore_errors=True)
     k = rows[SERVE_OP]
@@ -2948,13 +3050,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/stencil_mwd.py:69",
         "launches": (served["k1_launches"] + ragged["k1_launches"]
                      + soaked["k1_launches"] + diff["launches"]
-                     + dist["launches"]),
+                     + dist["launches"] + benches["launches"]["mwd"]),
         "max_abs_err": tally.max_abs_err["mwd"],
         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}]
     # ms, plain_ms and bound_ms at 7pt-var per call, as K1's entry;
-    # launches over the 512^3 drive of phase 5
+    # launches over the 512^3 drive of phase 5 and phase 9's benches
     for name, method, line, lib_ms, lib_call in (
             ("sweep", "spatial", 31, library["library_ms"],
              "F.conv3d 3x3x3, 7pt-const 512^3, one step (K2: k2_step_ms)"),
@@ -2964,7 +3066,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/stencil_{name}.py:{line}",
-            "launches": base_launches[name],
+            "launches": base_launches[name] + benches["launches"][name],
             "max_abs_err": tally.max_abs_err[name],
             "ms": b["kernel_ms"], "plain_ms": b["plain_ms"],
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],

@@ -3,6 +3,7 @@
 * `precision` — dtype short names and accumulator policy (torch dtypes)
 * `ir`        — declarative StencilOp IR and the generated torch sweep
 * `stencils`  — the four paper operators + step / naive API
+* `listings`  — the paper's Listings 1-4 by hand, which pin `ir.make_sweep`
 * `tiling`    — diamond tessellation and the schedule compiler (numpy)
 * `mwd`       — `MWDPlan` and the span-update oracles of the MWD kernel
 * `scheduler` — serving queue policy (lanes, admission, windows)

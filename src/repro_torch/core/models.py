@@ -13,8 +13,10 @@ terms do not apply:
 * K1 model — `k1_predict`: the schedule's bytes over the HBM rate, the
              flops over the f32 peak, the barrier-ended phases each CTA
              passes times the waves of resident clusters at the costs
-             `fit_k1` measures, and one launch per diamond row. The tuner
-             scores plans with it (`core.autotune.model_score`).
+             `fit_k1` measures, and one launch per diamond row, at the
+             kernel's own cluster size or a requested one (``cluster=``,
+             Figs. 16-18). The tuner scores plans with it
+             (`core.autotune.model_score`).
 * Calibration — `fit_ecm` / `model_residuals` (the effective ECM
              constants of a sweep), `fit_k1` / `k1_residuals` (K1's phase
              costs), `energy` (Fig. 19), and the per-spec artifact
@@ -142,6 +144,18 @@ def mwd_tile_bytes(spec: StencilSpec, d_w: int, n_f: int, nz: int, nx: int,
     out_steps = max(0, n_j - d_w // n_f)
     per_step_out = 2 * n_f * d_w * nxp * word_bytes
     return float(n_j * per_step_in + out_steps * per_step_out)
+
+
+def mwd_row_overhead_bytes(spec: StencilSpec, d_w: int, n_f: int,
+                           grid_shape,
+                           word_bytes: int = DEFAULT_WORD_BYTES) -> float:
+    """Extra bytes ONE per-row launch of the reference's schedule moves
+    beside the fused one: its two inactive edge tiles, each a whole
+    `mwd_tile_bytes` (the reference's Eq. 5-style term, kept for the
+    paper's figures; K1's per-row bytes are `k1_predict`'s)."""
+    nz, ny, nx = grid_shape
+    n_inactive = 2                           # edge columns -1 and ny//D_w + 1
+    return n_inactive * mwd_tile_bytes(spec, d_w, n_f, nz, nx, word_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -548,9 +562,19 @@ def _round16(v: int) -> int:
     return (v + 15) & ~15
 
 
+def mwd_cluster_slab(nxr: int, cluster: int, word: int) -> tuple[int, int]:
+    """``(slab, CTAs)`` of a tile split for `cluster` CTAs over `nxr`
+    interior columns: ``choose()``'s rounding in ``csrc/mwd.cu`` (slabs a
+    whole 16 bytes; the CTAs that rounding leaves may be fewer)."""
+    e = 16 // word                      # elements per 16 bytes
+    slab = max(-(-nxr // cluster) + e - 1, e) // e * e
+    return slab, max(1, -(-nxr // slab))
+
+
 def mwd_smem_plan(op: StencilSpec, d_w: int, n_f: int, nx: int,
                   word: int = DEFAULT_WORD_BYTES,
-                  chip: devspecs.DeviceSpec | None = None) -> SmemPlan | None:
+                  chip: devspecs.DeviceSpec | None = None,
+                  cluster: int | None = None) -> SmemPlan | None:
     """K1's slab, cluster, staging and shared memory for grids `nx` wide.
 
     The Python twin of ``choose()`` and ``smem_bytes()`` in
@@ -559,7 +583,9 @@ def mwd_smem_plan(op: StencilSpec, d_w: int, n_f: int, nx: int,
     ``chip.max_cluster`` CTAs holds the rings beside the block's static
     shared memory, `MWD_STATIC_SMEM`) or where the plan is not a
     K1 plan (2R or n_f not dividing d_w, more than `MWD_MAX_T` updates a
-    pass).
+    pass). `cluster` (``prepare(cluster=)``) tries that size alone: None
+    also where its slab rounding gives another count of CTAs or slabs
+    narrower than R (E_CLUSTER_SIZE), or where its rings do not fit.
     """
     chip = chip or devspecs.current_spec()
     r = op.radius
@@ -585,10 +611,12 @@ def mwd_smem_plan(op: StencilSpec, d_w: int, n_f: int, nx: int,
         return chip.smem_sm_bytes // (b + MWD_BLOCK_OVERHEAD)
 
     nxr = max(nx - 2 * r, 0)
-    c_min = max(1, -(-nxr // MWD_SLAB_TARGET))
-    for c in range(c_min, chip.max_cluster + 1):
-        slab = max(-(-nxr // c) + e - 1, e) // e * e
-        cl = max(1, -(-nxr // slab))
+    sizes = (range(max(1, -(-nxr // MWD_SLAB_TARGET)), chip.max_cluster + 1)
+             if cluster is None else (cluster,))
+    for c in sizes:
+        slab, cl = mwd_cluster_slab(nxr, c, word)
+        if cluster is not None and (cl != c or (cl > 1 and slab < r)):
+            return None
         if cl > chip.max_cluster or (cl > 1 and slab < r):
             break
         plain = smem(slab, False)
@@ -607,12 +635,13 @@ def mwd_smem_plan(op: StencilSpec, d_w: int, n_f: int, nx: int,
 
 def smem_fits(op: StencilSpec, d_w: int, n_f: int, nx: int,
               word: int = DEFAULT_WORD_BYTES,
-              chip: devspecs.DeviceSpec | None = None) -> bool:
+              chip: devspecs.DeviceSpec | None = None,
+              cluster: int | None = None) -> bool:
     """Whether K1 launches the plan on grids `nx` wide: `mwd_smem_plan`
     finds rings that fit and at least one such CTA fits an SM by the
     kernel's own count (where it counts none, the occupancy API decides
     and may refuse the launch)."""
-    plan = mwd_smem_plan(op, d_w, n_f, nx, word, chip)
+    plan = mwd_smem_plan(op, d_w, n_f, nx, word, chip, cluster)
     return plan is not None and plan.per_sm >= 1
 
 
@@ -740,7 +769,8 @@ def k1_phase_cost(phases: dict, chip: devspecs.DeviceSpec) -> float:
 def k1_predict(op: StencilSpec, grid_shape, d_w: int, n_f: int,
                n_steps: int, *, fused: bool = True,
                word: int = DEFAULT_WORD_BYTES,
-               chip: devspecs.DeviceSpec | None = None) -> K1Prediction:
+               chip: devspecs.DeviceSpec | None = None,
+               cluster: int | None = None) -> K1Prediction:
     """K1's time for one `ops.mwd` advance of one grid, term by term.
 
     Bytes: `mwd_schedule_bytes`; the per-row mode also copies both padded
@@ -753,15 +783,17 @@ def k1_predict(op: StencilSpec, grid_shape, d_w: int, n_f: int,
     clusters (`k1_resident`, `k1_waves`), each priced at the spec's
     measured cost
     (`K1_COSTS`, fitted by `fit_k1`). Launches: one per diamond row, times
-    ``chip.launch_s``. Raises ValueError where `mwd_smem_plan` finds no
+    ``chip.launch_s``. `cluster` prices K1 at that many CTAs a tile
+    (`mwd_smem_plan`). Raises ValueError where `mwd_smem_plan` finds no
     fit; the host side of `ops.mwd` (padding, cropping) is not modeled.
     """
     chip = chip or devspecs.current_spec()
     nz, ny, nx = grid_shape
-    smem = mwd_smem_plan(op, d_w, n_f, nx, word, chip)
+    smem = mwd_smem_plan(op, d_w, n_f, nx, word, chip, cluster)
     if smem is None:
         raise ValueError(f"{op.name}: no K1 launch fits d_w={d_w}, "
-                         f"n_f={n_f} at nx={nx}, word={word}")
+                         f"n_f={n_f} at nx={nx}, word={word}"
+                         + (f", cluster={cluster}" if cluster else ""))
     geo = k1_geometry(op.radius, grid_shape, d_w, n_f, n_steps, fused=fused)
     comp = geo.comp
     lups = float(nz * ny * nx * n_steps)

@@ -86,7 +86,7 @@ namespace cg = cooperative_groups;
 #define MWD_CELLS 2          // cells per lane and row, 32 columns apart
 
 // launcher errors of this kernel (stencil_cell.cuh holds -1..-3)
-enum { E_CLUSTER = -4, E_SMEM = -5 };
+enum { E_CLUSTER = -4, E_SMEM = -5, E_CLUSTER_SIZE = -6 };
 
 struct Geo {
   long long grid_elems;   // elements of one padded parity grid
@@ -100,6 +100,7 @@ struct Geo {
   int n_taps;
   int n_array_groups;       // groups with array coefficients
   int exchange;             // some update pushes halos: launch as clusters
+  int cluster_req;          // CTAs per tile the caller asks for (0: choose)
   // chosen by the launcher
   int cluster, slab;
   int ahead;                              // slabs in flight (1 or 2)
@@ -398,14 +399,22 @@ static int per_sm(long long bytes, int smem_sm) {
 // streams only where that keeps as many blocks per SM as reading them in
 // place (latency hides behind more resident blocks better than behind a
 // staged ring); 256 threads where two or more blocks share an SM, else 512.
+// A cluster size the caller asks for (g.cluster_req, the paper's thread
+// group size) is the only one tried: E_CLUSTER_SIZE where the slab
+// rounding gives another count of CTAs (or slabs narrower than R), E_SMEM
+// where its rings do not fit.
 static int choose(Geo& g, int elem, int smem_max, int smem_sm,
                   const int static_bytes[2], Plan& p) {
   const int nxr = max(g.hi_x - g.lo_x, 0);
-  const int c_min = max(1, (nxr + MWD_SLAB_TARGET - 1) / MWD_SLAB_TARGET);
+  const int c_min = g.cluster_req ? g.cluster_req
+      : max(1, (nxr + MWD_SLAB_TARGET - 1) / MWD_SLAB_TARGET);
+  const int c_max = g.cluster_req ? g.cluster_req : MWD_MAX_CLUSTER;
   const int e = 16 / elem;            // slabs start 16-byte aligned
-  for (int c = c_min; c <= MWD_MAX_CLUSTER; ++c) {
+  for (int c = c_min; c <= c_max; ++c) {
     const int slab = max((nxr + c - 1) / c + e - 1, e) / e * e;
     const int cl = max(1, (nxr + slab - 1) / slab);
+    if (g.cluster_req && (cl != c || (cl > 1 && slab < g.radius)))
+      return E_CLUSTER_SIZE;
     if (cl > MWD_MAX_CLUSTER || (cl > 1 && slab < g.radius)) break;
     const long long plain = smem_bytes(g, slab, 0, elem);
     const long long staged = g.n_arrays ? smem_bytes(g, slab, 1, elem) : -1;
@@ -517,9 +526,9 @@ static int launch_rows(void* buf_e, void* buf_o, const void* coeff, Geo g,
   return 0;
 }
 
-// geo[26]: grid_elems, sz, sy, n_arrays, n_j, n_f, radius, t_steps, n_tiles,
+// geo[27]: grid_elems, sz, sy, n_arrays, n_j, n_f, radius, t_steps, n_tiles,
 //          lo_z, hi_z, lo_y, hi_y, lo_x, hi_x, skip_inactive, nz, ny, nx,
-//          pz, py, px, d_w, n_taps, n_array_groups, exchange
+//          pz, py, px, d_w, n_taps, n_array_groups, cluster_req, exchange
 static int read_geo(const long long* geo, Geo& g) {
   g = Geo{};
   g.grid_elems = geo[0]; g.sz = geo[1]; g.sy = geo[2];
@@ -533,13 +542,15 @@ static int read_geo(const long long* geo, Geo& g) {
   g.pz = (int)geo[19]; g.py = (int)geo[20]; g.px = (int)geo[21];
   g.d_w = (int)geo[22];
   g.n_taps = (int)geo[23]; g.n_array_groups = (int)geo[24];
-  g.exchange = (int)geo[25];
+  g.cluster_req = (int)geo[25];
+  g.exchange = (int)geo[26];
   g.csy = nx;
   g.csz = (long long)g.ny * nx;
   g.coeff_elems = (long long)g.nz * g.csz;
   if (g.n_tiles < 1 || g.n_f < 1 || g.radius < 1 || 2 * g.radius > 32
       || g.t_steps < 1 || g.t_steps > MWD_MAX_T || g.d_w % g.n_f
-      || g.n_taps < 1 || g.n_taps > STENCIL_MAX_TAPS)
+      || g.n_taps < 1 || g.n_taps > STENCIL_MAX_TAPS
+      || g.cluster_req < 0 || g.cluster_req > MWD_MAX_CLUSTER)
     return E_GEOMETRY;
   return 0;
 }
@@ -563,7 +574,7 @@ static int read_geo(const long long* geo, Geo& g) {
 extern "C" {
 
 // Launch rows [row_begin, row_end) of the compiled schedule on `stream`.
-//   geo[26]     see read_geo
+//   geo[27]     see read_geo
 //   taps[n]     linear tap offsets in group order (padded grid layout)
 //   taps3[3n]   (dz, dy, dx) of the same taps
 //   groups[3*G+2]  (count, kind, slot) per group, then (scale_kind, slot)
@@ -658,6 +669,9 @@ const char* mwd_error_string(int code) {
       return "the thread-block cluster does not fit on the device";
     case E_SMEM:
       return "no slab width fits the rings beside the static shared memory";
+    case E_CLUSTER_SIZE:
+      return "the requested cluster size does not split the x range into "
+             "that many slabs";
   }
   return stencil_error_string(code);
 }

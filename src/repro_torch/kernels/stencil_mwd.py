@@ -20,8 +20,11 @@ Two executors consume the padded parity grids and the tables:
   distributed shared memory with a cluster barrier after each update whose
   halo a later update reads (at dw8 none does at the 25-point ops, whose
   CTAs then run without a cluster). The kernel picks the slab width,
-  cluster size, staging and block size (`kernel_config` reports them). It
-  takes CUDA tensors only and raises on anything else.
+  cluster size, staging and block size (`kernel_config` reports them);
+  ``prepare(cluster=c)`` asks for c CTAs a tile instead, the paper's
+  thread-group size, which the kernel takes or refuses (`LaunchRefused`),
+  never swapping in another. It takes CUDA tensors only and raises on
+  anything else.
 * `run_plain` walks the same tables tile by tile in row-major order with
   torch slicing, each span over the whole z extent, on its own padded copy
   of the coefficients. The CPU path uses it; on the card only the chip
@@ -58,6 +61,22 @@ from repro_torch.kernels._host import (LaunchCounter, TYPE_CODES,
 
 LAUNCHES = LaunchCounter()
 
+MAX_CLUSTER = 16        # MWD_MAX_CLUSTER of csrc/mwd.cu
+
+# launcher codes for a configuration the kernel does not take (csrc/mwd.cu):
+# no resident cluster, no rings that fit, a cluster size the slab rounding
+# does not reach
+REFUSALS = {-4: "E_CLUSTER", -5: "E_SMEM", -6: "E_CLUSTER_SIZE"}
+
+
+class LaunchRefused(RuntimeError):
+    """K1 does not take the job's configuration (`REFUSALS`); `code`
+    names the launcher's error."""
+
+    def __init__(self, code: str, message: str):
+        super().__init__(f"{message} [{code}]")
+        self.code = code
+
 
 @dataclasses.dataclass
 class Job:
@@ -84,11 +103,12 @@ class Job:
     n_j: int = 0
     fused: bool = True
     acc_dtype: torch.dtype | None = None
+    cluster: int | None = None       # CTAs a tile asked for; None: kernel's
 
 
 def prepare(spec: st.StencilSpec, state, arrays, scalars, n_steps: int, *,
             d_w: int, n_f: int, fused: bool, interior=None, y_domain=None,
-            acc_dtype=None) -> Job:
+            acc_dtype=None, cluster: int | None = None) -> Job:
     """Checks, frame sync, padding and schedule tables of one advance.
 
     `state` is ``(cur, prev)`` with optional leading batch axis, `arrays`
@@ -96,8 +116,13 @@ def prepare(spec: st.StencilSpec, state, arrays, scalars, n_steps: int, *,
     batched), `scalars` the op's scalar tuple. `interior` is
     ``[lo_z, hi_z, lo_y, hi_y, lo_x, hi_x]`` in grid coordinates (default:
     the R-deep Dirichlet frame); `y_domain` the tessellation's y extent
-    (default ``(R, ny - R)``).
+    (default ``(R, ny - R)``). `cluster` asks the kernel for that many
+    CTAs a tile (1 to `MAX_CLUSTER`; None lets it choose); the plain
+    version's result does not depend on it.
     """
+    if cluster is not None and not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"cluster must be in 1..{MAX_CLUSTER}, got "
+                         f"{cluster}")
     cur, prev = state
     if acc_dtype is not None and acc_dtype == cur.dtype:
         acc_dtype = None                # native accumulation: no casts
@@ -119,6 +144,7 @@ def prepare(spec: st.StencilSpec, state, arrays, scalars, n_steps: int, *,
     job.scalars = tuple(float(x) for x in scalars)
     job.comp, job.bounds, job.pads = geo.comp, geo.bounds, geo.pads
     job.n_f, job.n_j, job.fused, job.acc_dtype = n_f, geo.n_j, fused, acc_dtype
+    job.cluster = cluster
     return job
 
 
@@ -200,13 +226,17 @@ def _geometry(job: Job) -> np.ndarray:
         job.n_f, op.radius, comp.t_steps, comp.n_tiles, *job.bounds,
         int(job.fused), nz, ny, nx, *job.pads, comp.d_w, len(op.taps),
         sum(coeff.kind == "array" for coeff, _ in op.groups),
-        int(halo_schedule(job)[0].any())], np.int64)
+        job.cluster or 0, int(halo_schedule(job)[0].any())], np.int64)
 
 
 def _check(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"MWD kernel {what} failed ({rc}): "
-                           f"{lib.mwd_error_string(rc).decode()}")
+    if rc == 0:
+        return
+    message = (f"MWD kernel {what} failed ({rc}): "
+               f"{lib.mwd_error_string(rc).decode()}")
+    if rc in REFUSALS:
+        raise LaunchRefused(REFUSALS[rc], message)
+    raise RuntimeError(message)
 
 
 def _type_codes(job: Job) -> tuple[int, int]:
@@ -227,7 +257,8 @@ def kernel_config(job: Job) -> dict:
     together), exchange (1: the CTAs of a tile run as a cluster and trade
     halos; 0: no update needs a neighbour's halo, so they run alone),
     static_smem (the chosen instance's static shared memory, which the
-    opt-in limit holds beside `smem_bytes`).
+    opt-in limit holds beside `smem_bytes`). Raises `LaunchRefused` where
+    the kernel does not take the job (at a requested `cluster`: that size).
     """
     dev = check_kernel_inputs("MWD", job.bufs)
     lib = _mwd_lib()

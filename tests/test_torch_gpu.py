@@ -698,3 +698,86 @@ def test_halo_exchange_copies_on_one_card(cuda):
     torch.cuda.synchronize()
     want = edge_pad(blocks[0][-2:], ((0, 0), (2, 2), (0, 0)))
     assert torch.equal(ext[1][0][:2], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(tst.SPECS) + ["aniso11"])
+def test_requested_cluster_sizes_bitwise_equal_plain_version(cuda, name):
+    """K1 at every cluster size it takes at WIDE_GRID (the paper's
+    thread-group size, `prepare(cluster=)`): bitwise equal to the plain
+    version, its configuration the fit twin's at that size; a size the
+    twin refuses raises `LaunchRefused` (E_SMEM or E_CLUSTER_SIZE)."""
+    from repro_torch.core import models
+    spec = _spec(name)
+    d_w = 12 if spec.radius == 3 else 8
+    kw = dict(d_w=d_w, n_f=2, fused=True)
+    state, coeffs = tst.make_problem(spec, WIDE_GRID, seed=3, device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    plain = tkern.prepare(spec, state, arrays, scalars, 5, **kw)
+    tkern.run_plain(plain)
+    keys = ("cluster", "slab", "stage", "threads", "smem_bytes")
+    taken = []
+    for c in range(1, tkern.MAX_CLUSTER + 1):
+        twin = models.mwd_smem_plan(spec, d_w, 2, WIDE_GRID[2], cluster=c)
+        job = tkern.prepare(spec, state, arrays, scalars, 5, cluster=c, **kw)
+        if twin is None:
+            with pytest.raises(tkern.LaunchRefused) as refused:
+                tkern.kernel_config(job)
+            assert refused.value.code in ("E_SMEM", "E_CLUSTER_SIZE")
+            continue
+        cfg = tkern.kernel_config(job)
+        assert {k: cfg[k] for k in keys} == {k: getattr(twin, k)
+                                             for k in keys}
+        tkern.run_kernel(job)
+        torch.cuda.synchronize()
+        assert_bitwise(job.bufs, plain.bufs)
+        taken.append(c)
+    assert len(taken) >= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,d_w,n_f,cluster,code", [
+    ("25pt-var", 8, 4, 1, "E_SMEM"),            # slab 512: rings too large
+    ("7pt-const", 4, 4, 1, "E_SMEM"),
+    ("7pt-const", 4, 4, 14, "E_CLUSTER_SIZE"),  # 40-column slabs: 13 CTAs
+    ("25pt-var", 8, 4, 15, "E_CLUSTER_SIZE"),   # 36-column slabs: 14 CTAs
+])
+def test_requested_cluster_refusals(cuda, name, d_w, n_f, cluster, code):
+    """The kernel never swaps a requested size for another: it refuses."""
+    from repro_torch.core import models
+    spec = tst.SPECS[name]
+    assert models.mwd_smem_plan(spec, d_w, n_f, 512, cluster=cluster) is None
+    state, coeffs = tst.make_problem(spec, (2 * spec.radius + 8, 24, 512),
+                                     seed=0, device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    job = tkern.prepare(spec, state, arrays, scalars, 2, d_w=d_w, n_f=n_f,
+                        fused=True, cluster=cluster)
+    before = tkern.LAUNCHES.count
+    with pytest.raises(tkern.LaunchRefused, match=code) as refused:
+        tkern.run_kernel(job)
+    assert refused.value.code == code and tkern.LAUNCHES.count == before
+
+
+GATED_BENCHES = ("smoke", "custom_stencil", "batched_serving",
+                 "tuned_vs_default", "adjoint_fit", "fig16_18_groupsize")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", GATED_BENCHES)
+def test_bench_gates_hold_on_the_card_at_small_sizes(cuda, name, tmp_path,
+                                                     monkeypatch):
+    """The harness's gates with K1 on the card, at the reference's sizes
+    (the groupsize bench's K1 leg at 64^3, each size bitwise)."""
+    import dataclasses
+    from repro_torch.benchmarks import run as tbench
+    monkeypatch.setenv("REPRO_TORCH_PLAN_REGISTRY", str(tmp_path / "p.json"))
+    b = tbench.Bench(cuda, echo=False)
+    b.sizes = dataclasses.replace(tbench.REFERENCE, clusters=(),
+                                  groupsize_k1=64)
+    tbench.BENCHES[name](b)
+    assert b.rows and all(r.derived.endswith(
+        f"device={torch.cuda.get_device_name(cuda)}") for r in b.rows)
+    if name == "fig16_18_groupsize":
+        k1 = [r for r in b.rows if ".k1." in r.name]
+        assert sum(r.data["fits"] for r in k1) >= 2
+        assert all(r.data["bitwise"] for r in k1 if r.data["fits"])

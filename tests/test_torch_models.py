@@ -218,6 +218,81 @@ def test_smem_plan_refusals_and_fit_boundary():
     assert tmodels.mwd_smem_plan(op, 8, 2, 4096, chip=tiny) is None
 
 
+def test_smem_plan_at_a_requested_cluster_hand_counts():
+    """choose() of csrc/mwd.cu at a requested cluster size tries that size
+    alone (the paper's thread-group size), counted by hand.
+
+    7pt-const, d_w 4, n_f 4, nx 512, f32: R 1, T 4, ahead 1, depth
+    2*4+4+1 = 13, cdepth 8+3 = 11, wy 6, taps round16(13*7*4) = 368;
+    interior 510. Cluster 2: slabs of 256 (wx 260), rings
+    2*13*6*260*4 = 162240, 162608 bytes, one CTA per SM (233472 //
+    (162608 + 4648)), 512 threads. Cluster 4: slabs of 128 (wx 132), rings
+    82368, 82736 bytes, two per SM, 256 threads. Cluster 1: slab 512 (wx
+    516), rings 321984 beyond the block (E_SMEM). Cluster 14: ceil(510/14)
+    = 37 rounds to 40, which 13 CTAs cover (E_CLUSTER_SIZE). The kernel
+    alone would take 8 CTAs (c_min = ceil(510/64)).
+    """
+    S = tmodels.SmemPlan
+    op = tst.SPECS["7pt-const"]
+    assert tmodels.mwd_smem_plan(op, 4, 4, 512, 4, cluster=2) == S(
+        cluster=2, slab=256, stage=0, threads=512, smem_bytes=162608,
+        per_sm=1, depth=13, cdepth=11)
+    assert tmodels.mwd_smem_plan(op, 4, 4, 512, 4, cluster=4) == S(
+        cluster=4, slab=128, stage=0, threads=256, smem_bytes=82736,
+        per_sm=2, depth=13, cdepth=11)
+    assert tmodels.mwd_cluster_slab(510, 14, 4) == (40, 13)
+    for c in (1, 14):
+        assert tmodels.mwd_smem_plan(op, 4, 4, 512, 4, cluster=c) is None
+        assert not tmodels.smem_fits(op, 4, 4, 512, 4, cluster=c)
+        with pytest.raises(ValueError, match=f"cluster={c}"):
+            tmodels.k1_predict(op, (64, 64, 512), 4, 4, 8, cluster=c)
+    assert tmodels.mwd_smem_plan(op, 4, 4, 512, 4).cluster == 8
+    # 25pt-var at nx 20 has 12 interior columns: in f32, 6 CTAs round to
+    # slabs of 4, which 3 CTAs cover; in f64 6 CTAs take slabs of 2,
+    # narrower than R = 4
+    assert tmodels.mwd_cluster_slab(12, 6, 4) == (4, 3)
+    assert tmodels.mwd_cluster_slab(12, 6, 8) == (2, 6)
+    for word in (4, 8):
+        assert tmodels.mwd_smem_plan(tst.SPECS["25pt-var"], 8, 2, 20, word,
+                                     cluster=6) is None
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_requested_cluster_prices_its_own_plan(name):
+    """The size the kernel picks, requested, gives the kernel's plan back;
+    every other size that fits is priced at its own slab and residency."""
+    _, op = pair(name)
+    d_w = 12 if op.radius == 3 else 8
+    for nx in (40, 200, 512):
+        natural = tmodels.mwd_smem_plan(op, d_w, 2, nx)
+        assert tmodels.mwd_smem_plan(op, d_w, 2, nx,
+                                     cluster=natural.cluster) == natural
+        nxr = nx - 2 * op.radius
+        for c in range(1, tspecs.current_spec().max_cluster + 1):
+            plan = tmodels.mwd_smem_plan(op, d_w, 2, nx, cluster=c)
+            slab, cl = tmodels.mwd_cluster_slab(nxr, c, 4)
+            if cl != c:
+                assert plan is None
+            if plan is None:
+                continue
+            assert (plan.cluster, plan.slab) == (c, slab)
+            pred = tmodels.k1_predict(op, (32, 48, nx), d_w, 2, 4, cluster=c)
+            assert pred.smem == plan
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_row_overhead_bytes_match_reference(name):
+    rspec, tspec = pair(name)
+    for d_w in widths(rspec):
+        for n_f in (1, 2, d_w):
+            for grid in ((16, 20, 24), (512, 512, 512)):
+                for word in (4, 8):
+                    close(tmodels.mwd_row_overhead_bytes(tspec, d_w, n_f,
+                                                         grid, word),
+                          rmodels.mwd_row_overhead_bytes(rspec, d_w, n_f,
+                                                         grid, word))
+
+
 @pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("n_f,dt", [(1, "f32"), (2, "f32"), (4, "f64"),
                                     (2, "bf16")])

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from repro_torch.core import ir as tir
+from repro_torch.core import models as tmodels
 from repro_torch.core import stencils as tst
 from repro_torch.kernels import stencil_mwd as tkern
 
@@ -278,6 +279,49 @@ def test_mirror_bitwise_equals_plain(name, divides):
     n_steps = 5 if spec.radius == 1 else 3
     mirror_vs_plain(spec, state, arrays, scalars, n_steps, slab,
                     d_w=d_w_of(spec), n_f=2, fused=True)
+
+
+# requested cluster sizes against the interior x width of GRID (nx = 20
+# less 2R): the sizes the slab rounding reaches, and one it does not
+FORCED = {1: ((1, 2, 3, 5), 4), 3: ((1, 2, 4), 3), 4: ((1, 2, 3), 4)}
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_mirror_at_a_requested_cluster_bitwise_equals_plain(name):
+    """`prepare(cluster=c)`: c CTAs a tile at the slab the launcher's
+    rounding gives them (the fit twin's), the staging it picks; a size the
+    rounding does not reach is refused, never swapped for another."""
+    spec = spec_of(name)
+    sizes, refused = FORCED[spec.radius]
+    state, arrays, scalars = problem(spec, seed=8)
+    kw = dict(d_w=d_w_of(spec), n_f=2, fused=True)
+    for c in sizes:
+        plan = tmodels.mwd_smem_plan(spec, kw["d_w"], 2, GRID[2], 4,
+                                     cluster=c)
+        assert plan.cluster == c
+        (job, _), _ = mirror_vs_plain(spec, state, arrays, scalars, 4,
+                                      plan.slab, stage=bool(plan.stage),
+                                      cluster=c, **kw)
+        assert len(slabs(job, plan.slab)) == c
+        assert job.cluster == c and tkern._geometry(job)[25] == c
+    nxr = GRID[2] - 2 * spec.radius
+    assert tmodels.mwd_cluster_slab(nxr, refused, 4)[1] != refused
+    assert tmodels.mwd_smem_plan(spec, kw["d_w"], 2, GRID[2], 4,
+                                 cluster=refused) is None
+
+
+def test_requested_cluster_in_the_geometry_table():
+    """0 asks the kernel to choose; the exchange flag stays last."""
+    spec = tst.SPECS["7pt-var"]
+    state, arrays, scalars = problem(spec, seed=9)
+    job = tkern.prepare(spec, state, arrays, scalars, 3, d_w=8, n_f=2,
+                        fused=True)
+    geo = tkern._geometry(job)
+    assert len(geo) == 27 and geo[25] == 0 and job.cluster is None
+    for bad in (0, tkern.MAX_CLUSTER + 1):
+        with pytest.raises(ValueError, match="cluster"):
+            tkern.prepare(spec, state, arrays, scalars, 3, d_w=8, n_f=2,
+                          fused=True, cluster=bad)
 
 
 @pytest.mark.parametrize("name", ["7pt-var", "25pt-var", "aniso11"])

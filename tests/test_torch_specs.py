@@ -155,6 +155,11 @@ def test_modules_import_no_jax_and_no_reference():
             "import repro_torch.launch.mesh, repro_torch.launch.scaling_gate\n"
             "import repro_torch.launch.sweep, repro_torch.launch.report\n"
             "import repro_torch.kernels.adjoint\n"
+            "import repro_torch.core.listings, repro_torch.benchmarks.run\n"
+            "import repro_torch.examples.quickstart\n"
+            "import repro_torch.examples.custom_stencil\n"
+            "import repro_torch.examples.heat3d_train\n"
+            "import repro_torch.examples.distributed_stencil\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
             "       or m.startswith(('jax.', 'repro.'))]\n"
             "print(bad)\n")
