@@ -170,8 +170,28 @@ failure so the script exits non-zero:
    bitwise equal to its plain version, its configuration the fit twin's,
    each refusal one the twin predicts), Fig. 19, the tuner, fused vs
    per-row at 512^3, tuned vs default at 512^3, smoke, the 19-point box op
-   at 512^3, batched serving at 128^3 and adjoint_fit; a `bench` line per
-   CSV row and a `groupsize` line per op (7pt-const, 25pt-var).
+   at 512^3, batched serving at 128^3, adjoint_fit and lm_substrate (one
+   train step of the reduced llama3.2-1b, mamba2-130m and mixtral-8x7b); a
+   `bench` line per CSV row and a `groupsize` line per op (7pt-const,
+   25pt-var).
+10. the LM substrate's training path at full width through its launcher
+   (repro_torch.launch.train.main, random weights from seed 0, sequence
+   4096, the repo's train_4k length): 10a llama3.2-1b (16 layers, d_model
+   2048, 1.24 B parameters, bf16, AdamW) for 4 steps at batch 2 with a
+   checkpoint every 2 steps, then a second run resumed from the step-2
+   checkpoint (writing none) whose losses at steps 2-3 equal the straight
+   run's within 1e-3 relative; 10b gemma3-1b (local window 512, qk-norm, tanh-gelu,
+   head_dim 256, vocab 262144) for 2 steps at batch 2; 10c mamba2-130m
+   (SSD, chunk 256) for 2 steps at batch 4; every loss finite; 10d
+   llama3.2-1b at full width in float32 (the 10a weights widened):
+   decode_step over 16 positions against forward's logits within 1e-3 of
+   their largest magnitude. One `lm_train` line per config: parameters,
+   tokens a step, step ms (median of the steps after the first) and
+   tokens/s, peak memory, the FLOPs of a step (6 N tokens plus attention
+   or SSD) and their time at the spec's bf16 peak, and, from one more
+   step under torch.profiler, the device's idle share and its five
+   costliest operations. No stencil kernel runs in this phase: the LM
+   path's products are torch.matmul, as the reference leaves them to XLA.
 
 Before the last line come one `baseline` JSON line per (op, method) and a
 JSON object with one entry per kernel (K1's launches from phases 4, 4b,
@@ -2036,8 +2056,9 @@ def peak_gb(fn) -> tuple[float, float]:
 def device_split(fn) -> dict:
     """One call of `fn` under torch.profiler: the device time of K1's
     kernels and of all other kernels (the plain-PyTorch terms), the wall
-    time, and the device's idle share of it. None where the profiler saw
-    no device activity."""
+    time, the device's idle share of it and its five costliest operations
+    by summed device time. None where the profiler saw no device
+    activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2053,9 +2074,16 @@ def device_split(fn) -> dict:
         return None
     k1_ms = sum(e.time_range.elapsed_us() for e in kernels
                 if "mwd_row_kernel" in e.name) / 1e3
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"k1_device_ms": k1_ms, "other_device_ms": busy_ms - k1_ms,
-            "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms}
+            "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "top_device_ops": [{"name": n[:100], "ms": ms,
+                                "share": ms / busy_ms} for n, ms in top]}
 
 
 def phase_differentiable(tally: Tally, dev) -> dict:
@@ -2687,6 +2715,156 @@ def phase_benches(dev) -> dict:
     return {"launches": launches, "groupsize": lines}
 
 
+# phase 10: the LM training path at full width, (arch, steps, batch)
+LM_SEQ = 4096
+LM_RUNS = (("llama3.2-1b", 4, 2), ("gemma3-1b", 2, 2),
+           ("mamba2-130m", 2, 4))
+LM_DECODE_POSITIONS = 16
+
+
+def lm_step_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """FLOPs of one train step, forward and backward (3x the forward; the
+    recomputation under remat not counted): 6 N per token for the
+    parameters, plus causal attention (the pairs a query sees, its window
+    on local layers) and the SSD's chunk-quadratic terms per layer."""
+    tokens = batch * seq
+    fwd = 0.0
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        if kind == "mamba":
+            q = min(256, seq)
+            h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+            fwd += 2 * tokens * q * (n + h * p) + 4 * tokens * h * n * p
+            continue
+        w = cfg.window if kind == "local" else seq
+        pairs = sum(min(t + 1, w) for t in range(seq)) if cfg.causal \
+            else seq * seq
+        fwd += 4 * batch * pairs * cfg.n_heads * cfg.resolved_head_dim
+    return 6.0 * n_params * tokens + 3.0 * fwd
+
+
+def lm_check_decode(cfg, params, dev) -> dict:
+    """10d: float32 decode_step over LM_DECODE_POSITIONS positions against
+    forward's logits at the same positions."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import tree_map
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    n = LM_DECODE_POSITIONS
+    toks = torch.randint(0, cfg.vocab_size, (1, n), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    with torch.no_grad():
+        want, _ = lm.forward(cfg32, p32, {"tokens": toks})
+        cache = lm.init_cache(cfg32, 1, n, device=dev)
+        got = []
+        for t in range(n):
+            lg, cache = lm.decode_step(cfg32, p32, cache, toks[:, t:t + 1])
+            got.append(lg)
+        got = torch.cat(got, dim=1)
+    scale = float(want.abs().max())
+    err = max_err(got, want)
+    check(bool(torch.isfinite(got).all()) and err <= 1e-3 * scale,
+          f"10d: decode vs forward max err {err} vs 1e-3 x {scale}")
+    return {"positions": n, "max_abs_err": err, "max_abs_logit": scale}
+
+
+def lm_line(arch, cfg, batch, records, peak, prof) -> dict:
+    """One `lm_train` line from a launcher run's records."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import count_params
+    n_params = count_params(lm.param_specs(cfg))
+    tokens = batch * LM_SEQ
+    step_ms = statistics.median(r["ms"] for r in records[1:])
+    flops = lm_step_flops(cfg, n_params, batch, LM_SEQ)
+    bound_ms = flops / chip().peak_flops_bf16 * 1e3
+    return {"arch": arch, "params": n_params, "batch": batch,
+            "seq": LM_SEQ, "tokens_per_step": tokens,
+            "steps": len(records), "first_step_ms": records[0]["ms"],
+            "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_gb": peak, "step_flops": flops,
+            "bound_ms_bf16_peak": bound_ms, "mfu": bound_ms / step_ms,
+            "losses": [r["loss"] for r in records],
+            "profiled_step": prof}
+
+
+def phase_lm(dev) -> dict:
+    """Phase 10: the LM training path at full width through
+    launch.train.main; 10a llama3.2-1b with a checkpoint every 2 steps and
+    a resumed run, 10b gemma3-1b, 10c mamba2-130m, 10d decode against
+    forward at float32. One `lm_train` line per config."""
+    import torch
+    from repro_torch.distributed import checkpoint
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"phase 10 start: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "allocated by earlier phases")
+    lines = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    try:
+        for arch, n_steps, batch in LM_RUNS:
+            t = time.perf_counter()
+            ckpt = os.path.join(tmp, arch)
+            argv = ["--full", "--arch", arch, "--steps", str(n_steps),
+                    "--batch", str(batch), "--seq", str(LM_SEQ),
+                    "--device", "cuda"]
+            if arch == "llama3.2-1b":
+                argv += ["--ckpt", ckpt, "--ckpt-every", "2"]
+            records = []
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t_main = time.perf_counter()
+            state = train.main(argv, records=records)
+            main_s = time.perf_counter() - t_main
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            losses = [r["loss"] for r in records]
+            check(all(math.isfinite(x) for x in losses),
+                  f"10 {arch}: a loss is not finite: {losses}")
+            # one more step under the profiler, on the state the run left:
+            # the launcher's own step and pipeline for the same argv
+            cfg, _, step, pipe = train.build(
+                train.build_parser().parse_args(argv))
+            data = pipe.get_batch(n_steps, cfg, device=dev)
+            prof = device_split(lambda: float(step(state, data)[1]["loss"]))
+            check(prof is not None, f"10 {arch}: the profiler saw no device "
+                  "activity")
+            line = lm_line(arch, cfg, batch, records, peak, prof)
+            line["main_s"] = main_s
+            if arch == "llama3.2-1b":
+                line["decode_f32"] = lm_check_decode(cfg, state["params"],
+                                                     dev)
+                del state
+                torch.cuda.empty_cache()
+                check(checkpoint.all_steps(ckpt) == [2, 4],
+                      f"10a checkpoints {checkpoint.all_steps(ckpt)}")
+                shutil.rmtree(os.path.join(ckpt, "step_0000000004"))
+                resumed = []
+                t_main = time.perf_counter()
+                # resumed from step 2; it writes no checkpoint of its own
+                train.main(argv[:-1] + ["100"], records=resumed)
+                line["resume_main_s"] = time.perf_counter() - t_main
+                check([r["step"] for r in resumed] == [2, 3],
+                      f"10a resumed steps {[r['step'] for r in resumed]}")
+                rel = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
+                       for a, b in zip(records[2:], resumed)]
+                check(max(rel) <= 1e-3, f"10a resumed losses differ by {rel}")
+                line["resumed_losses"] = [r["loss"] for r in resumed]
+                line["resume_rel_err"] = max(rel)
+            else:
+                del state
+            line["phase_s"] = time.perf_counter() - t
+            lines[arch] = line
+            log("lm_train " + json.dumps(line))
+            shutil.rmtree(ckpt, ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 10 lm: {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
 def time_kernels() -> None:
     """K1, K2 and K3 per paper op at 512^3 x 8, as one JSON line.
 
@@ -3041,6 +3219,7 @@ def main() -> int:
         diff = phase_differentiable(tally, dev)
         dist = phase_distributed(tally, dev)
         benches = phase_benches(dev)
+        phase_lm(dev)
     finally:
         shutil.rmtree(plans, ignore_errors=True)
     k = rows[SERVE_OP]

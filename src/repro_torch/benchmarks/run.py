@@ -5,11 +5,12 @@
 The port of ``benchmarks/run.py``. It prints ``name,us_per_call,derived``
 CSV rows under the reference's row names, so that the two harnesses pair up
 row by row; NAME runs the benches whose key contains it. The benches drive
-the port's entry points (`kernels.ops`, `launch.soak`, `launch.fit`): K1, K2
-and K3 on the card, their plain PyTorch versions on the CPU. Times on the
-card come from CUDA events and on the CPU from the host clock; every row
-ends with the device it ran on (``device=``), so no CPU time reads as a
-device metric. Runs on ``cuda`` unless ``--device cpu`` is given.
+the port's entry points (`kernels.ops`, `launch.soak`, `launch.fit`,
+`training.steps`): K1, K2 and K3 on the card, their plain PyTorch versions
+on the CPU. Times on the card come from CUDA events and on the CPU from
+the host clock; every row ends with the device it ran on (``device=``), so
+no CPU time reads as a device metric. Runs on ``cuda`` unless ``--device
+cpu`` is given.
 
 Sizes: on the CPU every bench runs at the reference's sizes (`REFERENCE`),
 which the tests hold the rows against; on the card at the paper's
@@ -26,7 +27,8 @@ K1's own counts stand beside them: ``Bc_schedule``, ``k1_MB`` and
 ``k1_launches`` (one launch a diamond row in both modes, `core.traffic`).
 
 The gates of smoke, custom_stencil, batched_serving, tuned_vs_default,
-adjoint_fit and soak raise `GateFailed` (soak's own `SoakFailed`).
+adjoint_fit, soak and lm_substrate (a finite loss) raise `GateFailed`
+(soak's own `SoakFailed`).
 
   fig4_code_balance   Fig. 4      model vs schedule code balance across D_w
   table_ecm           Tables I/II the tuned plan's predictions (on the card
@@ -47,6 +49,9 @@ adjoint_fit and soak raise `GateFailed` (soak's own `SoakFailed`).
   batched_serving     one batched advance of B grids vs B calls
   soak                the mixed-traffic serving soak (`launch.soak`)
   adjoint_fit         `mwd_diff`'s gradients and the coefficient fit
+  lm_substrate        one train step of the LM substrate (llama3.2-1b,
+                      mamba2-130m, mixtral-8x7b) at the reduced 2-layer,
+                      d64 configs, on the harness's clock
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import math
 import statistics
 import time
 
@@ -809,6 +815,33 @@ def adjoint_fit(b: Bench) -> None:
           f"reduction={rep['reduction']:.0f}x;steps={rep['steps']}")
 
 
+def lm_substrate(b: Bench) -> None:
+    """One train step of the LM substrate per family the reference times
+    (dense, SSM, MoE): the reduced 2-layer, d64 configs, batch 2 x 64
+    tokens of zeros, seed-0 weights, the config's optimizer. No stencil
+    kernel runs here: the products are `torch.matmul`."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.models.params import count_params, tree_init
+    from repro_torch.training import steps as tsteps
+
+    for arch in ("llama3.2-1b", "mamba2-130m", "mixtral-8x7b"):
+        cfg = configs.reduced(configs.get(arch), n_layers=2, d_model=64)
+        specs = lm.param_specs(cfg)
+        params = tree_init(specs, seed=0, device=b.device)
+        toks = torch.zeros((2, 64), dtype=torch.int32, device=b.device)
+        batch = {"tokens": toks, "labels": toks}
+        opt, train = tsteps.make_train_step(cfg, chunk=32)
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        loss = float(train(state, batch)[1]["loss"])
+        gate(math.isfinite(loss), f"lm_substrate: {arch} loss {loss}")
+        us = b.time_us(lambda: train(state, batch)[1]["loss"], reps=3)
+        b.row(f"lm.train_step.{arch}", us,
+              f"reduced_cfg_2L_d64;params={count_params(specs)};"
+              f"tokens=128;loss={loss:.4f}", arch=arch, loss=loss)
+
+
 BENCHES = {
     "fig4_code_balance": fig4_code_balance,
     "table_ecm": table_ecm,
@@ -823,6 +856,7 @@ BENCHES = {
     "batched_serving": batched_serving,
     "soak": soak,
     "adjoint_fit": adjoint_fit,
+    "lm_substrate": lm_substrate,
 }
 
 

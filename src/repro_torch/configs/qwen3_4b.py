@@ -1,0 +1,10 @@
+"""qwen3-4b [hf:Qwen/Qwen3-4B]: GQA + qk-norm."""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-4b", family="dense",
+    n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=9728, vocab_size=151936,
+    qk_norm=True, rope_theta=1e6, tie_embeddings=True,
+)

@@ -16,7 +16,8 @@ Checks, each raising `SoakFailed`: every response equals its own
 `ops.mwd` run under the soak's plan (``torch.equal``: a frozen ``-0.0``
 on the boundary ring would read as ``+0.0``, see `core.padding`); no
 request is dropped; draining the whole mix with batching on beats
-draining it one request a launch (best of 3 each, one retry).
+draining it one request a launch (best of 5 rounds each, the two taken in
+turns; on one intra-op thread on the CPU, see `contest`).
 
 The JSON report (the reference's keys) goes to `$REPRO_TORCH_SOAK_REPORT`,
 else ``.repro_torch_cache/soak.json``; the JSON-lines telemetry events go
@@ -27,6 +28,7 @@ no wall-clock contest; `finish` adds the contest and writes the report. Runs on 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -53,6 +55,7 @@ LADDER = "6,8,12"               # classes (6, 12, 8) and (6, 12, 12)
 MEAN_GAP_S = 1.5e-3
 INTERACTIVE_EVERY, DEADLINE_S = 3, 2.0
 MAX_BATCH, WINDOW_MS, DRAIN_WINDOW_MS = 4, 10.0, 5.0
+CONTEST_ROUNDS = 5
 
 
 class SoakFailed(RuntimeError):
@@ -137,9 +140,16 @@ def run_mix(device="cuda", events_path: str | None = None):
 
 def contest(problems) -> tuple[float, float]:
     """Seconds to drain the whole mix, batching off and on: ``(t_seq,
-    t_bat)``, each the best of 3 in turns, measured once more if batching
-    lost the first round. Every request has arrived before the drain
-    starts, so the wall clock is serving throughput, not arrival pacing.
+    t_bat)``, each the best of `CONTEST_ROUNDS`, the two drains taken in turns
+    within each round so that a load spike from other processes hits both.
+    Every request has arrived before the drain starts, so the wall clock is
+    serving throughput, not arrival pacing.
+
+    On the CPU both drains run on one intra-op thread (`single_thread`):
+    with the default pool, other processes holding the cores slow the
+    batched drain's larger, threaded ops several-fold and leave the
+    sequential drain's small single-threaded ops alone, so the contest
+    would read the machine's load instead of batching.
     """
     spec = stc.SPECS[OP]
     ladder = padding.parse_ladder(LADDER)
@@ -154,20 +164,31 @@ def contest(problems) -> tuple[float, float]:
                           ladder=lad)
         return time.perf_counter() - t
 
-    for p in problems[:len(GRIDS)]:     # warm the B=1 exact-shape launches
-        serve._launch_batch(spec, [p[0]], [p[1]], N_STEPS, PLAN,
-                            tuple(p[0][0].shape))
-    drain(MAX_BATCH, ladder), drain(1, None)   # warm the loop on this clock
+    with single_thread(problems[0][0][0].device):
+        for p in problems[:len(GRIDS)]:  # warm the B=1 exact-shape launches
+            serve._launch_batch(spec, [p[0]], [p[1]], N_STEPS, PLAN,
+                                tuple(p[0][0].shape))
+        drain(MAX_BATCH, ladder), drain(1, None)   # warm the loop
+        t_bat, t_seq = [], []
+        for _ in range(CONTEST_ROUNDS):
+            t_bat.append(drain(MAX_BATCH, ladder))
+            t_seq.append(drain(1, None))
+    return min(t_seq), min(t_bat)
 
-    def measure():
-        t_bat = min(drain(MAX_BATCH, ladder) for _ in range(3))
-        t_seq = min(drain(1, None) for _ in range(3))
-        return t_seq, t_bat
 
-    t_seq, t_bat = measure()
-    if t_bat > t_seq:                   # absorb one contention spike
-        t_seq, t_bat = measure()
-    return t_seq, t_bat
+@contextlib.contextmanager
+def single_thread(device: torch.device):
+    """One intra-op thread while inside, on a CPU device; the pool's size
+    comes back after. A no-op for a CUDA device."""
+    if device.type != "cpu":
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def events_path(path: str) -> str:

@@ -1,0 +1,224 @@
+"""Transformer building blocks: RMSNorm, RoPE/M-RoPE, GQA attention
+(full/sliding-window/encoder, qk-norm), gated & plain MLPs.
+
+The port of `repro.models.layers`, on tensors. Attention is q-chunked with
+a static python loop, bounding the logits memory to one chunk's; sliding-
+window layers statically restrict each q-chunk's KV range, the
+SWA-as-sequence-stencil correspondence of DESIGN.md. Logits and softmax
+are float32 (the reference's ``preferred_element_type``: bfloat16 inputs
+are widened, so every product is exact and sums run in float32), masked
+positions take ``-1e30`` as the reference's do, and the weights go back to
+the activation dtype before the value product. The caller wraps each block
+in activation checkpointing (remat).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import common as C
+from repro_torch.models.params import ParamSpec
+
+F32 = torch.float32
+MASKED = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms & MLPs
+# ---------------------------------------------------------------------------
+
+def rmsnorm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), ("embed",), dtype="float32")
+
+
+def rmsnorm(x, w, eps: float = 1e-6):
+    """RMS-normalise the last dim in float32, scale by `w`, back to
+    `x`'s dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def mlp_specs(cfg: ArchConfig, dtype: str) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "gelu2":    # plain 2-matrix FFN (hubert)
+        return {"wi": ParamSpec((d, f), ("embed", "mlp"), dtype),
+                "wo": ParamSpec((f, d), ("mlp", "embed"), dtype)}
+    return {"wi_gate": ParamSpec((d, f), ("embed", "mlp"), dtype),
+            "wi_up": ParamSpec((d, f), ("embed", "mlp"), dtype),
+            "wo": ParamSpec((f, d), ("mlp", "embed"), dtype)}
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def nonlinearity(act: str):
+    """The gated FFN's nonlinearity: tanh-gelu for ``"gelu"``, else silu."""
+    return gelu if act == "gelu" else F.silu
+
+
+def mlp(p, x, act: str):
+    if act == "gelu2":
+        h = C.constrain(gelu(x @ p["wi"]), C.BATCH, None, C.MODEL)
+        return h @ p["wo"]
+    h = nonlinearity(act)(x @ p["wi_gate"]) * (x @ p["wi_up"])
+    h = C.constrain(h, C.BATCH, None, C.MODEL)
+    return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# RoPE / M-RoPE
+# ---------------------------------------------------------------------------
+
+def rope_angles(positions, head_dim: int, theta: float,
+                sections: tuple[int, ...] = ()):
+    """positions: (B,S) or (3,B,S) for M-RoPE. Returns cos,sin (B,S,half)."""
+    half = head_dim // 2
+    dev = positions.device
+    freqs = theta ** (-torch.arange(half, dtype=F32, device=dev) / half)
+    if sections:
+        assert sum(sections) == half, (sections, half)
+        # frequency i takes its position stream from its (t,h,w) section
+        sec_id = torch.repeat_interleave(
+            torch.arange(len(sections), device=dev),
+            torch.tensor(sections, device=dev))
+        pos = positions.float()[sec_id]                  # (half,B,S)
+        ang = torch.movedim(pos, 0, -1) * freqs          # (B,S,half)
+    else:
+        ang = positions.float()[..., None] * freqs       # (B,S,half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B,S,H,D); cos/sin: (B,S,half)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def attention_specs(cfg: ArchConfig, dtype: str) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    p = {
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", None), dtype),
+        "wk": ParamSpec((d, hkv, hd), ("embed", "kv_heads", None), dtype),
+        "wv": ParamSpec((d, hkv, hd), ("embed", "kv_heads", None), dtype),
+        "wo": ParamSpec((h, hd, d), ("heads", None, "embed"), dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = ParamSpec((hd,), (None,), "float32")
+        p["k_norm"] = ParamSpec((hd,), (None,), "float32")
+    return p
+
+
+def _gqa_weights(qr, k, scale, valid):
+    """Softmax weights ``(B,G,R,Q,K)`` of grouped queries `qr` ``(B,Q,G,R,D)``
+    against keys `k` ``(B,K,G,D)``: float32 logits, `valid` ``(Q,K)`` or
+    ``(K,)`` (None: every key), back to the queries' dtype."""
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qr.float(), k.float()) * scale
+    if valid is not None:
+        logits = torch.where(valid, logits, MASKED)
+    return torch.softmax(logits, dim=-1).to(qr.dtype)
+
+
+def attention_core(q, k, v, *, kind: str, window: int, causal: bool,
+                   q_offset: int = 0, chunk: int = 2048):
+    """q (B,Sq,H,D) x k,v (B,Sk,Hkv,D) -> (B,Sq,H,D).
+
+    Static q-chunking; "local" layers slice each chunk's KV range statically
+    to [qpos - window + 1, qpos]. q_offset = absolute position of q[0]
+    (decode: cache length; prefill: 0).
+    """
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = d ** -0.5
+    qr = q.reshape(b, sq, hkv, rep, d)
+    chunk = min(chunk, sq)
+    outs = []
+    for s0 in range(0, sq, chunk):
+        s1 = min(s0 + chunk, sq)
+        qc = qr[:, s0:s1]
+        if kind == "local" and causal:
+            k0 = max(0, q_offset + s0 - window + 1)
+        else:
+            k0 = 0
+        k1 = min(sk, q_offset + s1) if causal else sk
+        kc, vc = k[:, k0:k1], v[:, k0:k1]
+        m = None
+        if causal:
+            qpos = q_offset + s0 + torch.arange(s1 - s0, device=q.device)
+            kpos = k0 + torch.arange(k1 - k0, device=q.device)
+            m = qpos[:, None] >= kpos[None, :]
+            if kind == "local":
+                m &= (qpos[:, None] - kpos[None, :]) < window
+        w = _gqa_weights(qc, kc, scale, m)
+        outs.append(torch.einsum("bgrqk,bkgd->bqgrd", w, vc))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out.reshape(b, sq, h, d)
+
+
+def _project(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
+    b, s, d = x.shape
+    return (x @ w.reshape(d, -1)).view(b, s, *w.shape[1:])
+
+
+def attention(p, cfg: ArchConfig, x, positions, kind: str, *,
+              cache=None, chunk: int = 2048, sections=()):
+    """Full attention block. cache: None (train/prefill) or dict with
+    {"k","v","length"} for single-token decode (returns updated cache)."""
+    b, s, _ = x.shape
+    q = C.constrain(_project(x, p["wq"]), C.BATCH, None, C.MODEL, None)
+    k = C.constrain(_project(x, p["wk"]), C.BATCH, None, C.MODEL, None)
+    v = C.constrain(_project(x, p["wv"]), C.BATCH, None, C.MODEL, None)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                           sections)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    if cache is None:
+        # seq_parallel_attn shards the query sequence over the model axis
+        # in the reference (no q-chunk loop); one card runs it unchunked
+        out = attention_core(q, k, v, kind=kind, window=cfg.window,
+                             causal=cfg.causal,
+                             chunk=q.shape[1] if cfg.seq_parallel_attn
+                             else chunk)
+        new_cache = None
+    else:
+        # decode: append (ring-buffered for local layers) and attend
+        ck, cv, ln = cache["k"], cache["v"], cache["length"]
+        cap = ck.shape[1]
+        idx = (ln % cap if kind == "local" else ln).reshape(1).long()
+        ck = ck.index_copy(1, idx, k)
+        cv = cv.index_copy(1, idx, v)
+        kpos_abs = torch.arange(cap, device=ck.device)
+        if kind == "local":
+            # ring buffer slot i holds the largest position p <= ln with
+            # p % cap == i; negative p = slot not yet filled
+            kpos = ln - torch.remainder(ln - kpos_abs, cap)
+            valid = (kpos >= 0) & (ln - kpos < cfg.window)
+        else:
+            valid = kpos_abs <= ln
+        rep = cfg.n_heads // cfg.n_kv_heads
+        qr = q.reshape(b, 1, cfg.n_kv_heads, rep, -1)
+        w = _gqa_weights(qr, ck, cfg.resolved_head_dim ** -0.5, valid)
+        out = torch.einsum("bgrqk,bkgd->bqgrd", w, cv)
+        out = out.reshape(b, 1, cfg.n_heads, -1)
+        new_cache = {"k": ck, "v": cv, "length": ln + 1}
+
+    y = out.reshape(b, s, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
+    return y, new_cache

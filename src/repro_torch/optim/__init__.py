@@ -1,6 +1,8 @@
-"""Optimizers of the port (`repro.optim` on tensors): AdamW and its
-warmup-cosine schedule, for the coefficient fit."""
+"""Optimizers of the port (`repro.optim` on tensors): AdamW with its
+warmup-cosine schedule, Adafactor, and the config's choice of the two."""
 
-from repro_torch.optim.optimizers import Optimizer, adamw, warmup_cosine
+from repro_torch.optim.optimizers import (Optimizer, adafactor, adamw,
+                                          make_optimizer, warmup_cosine)
 
-__all__ = ["Optimizer", "adamw", "warmup_cosine"]
+__all__ = ["Optimizer", "adamw", "adafactor", "make_optimizer",
+           "warmup_cosine"]

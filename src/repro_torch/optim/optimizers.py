@@ -1,13 +1,17 @@
-"""AdamW on tensors, with the reference's arithmetic.
+"""Optimizers on tensors, with the reference's arithmetic: AdamW and
+Adafactor (a factored second moment, for the 398B/1T architectures).
 
-The port of `repro.optim.optimizers` (`adafactor` and `make_optimizer`
-serve the LM substrate and are not ported). An `Optimizer` is a pair of
+The port of `repro.optim.optimizers`. An `Optimizer` is a pair of
 functions ``(init, update)`` over a tensor or a dict, list or tuple of
-tensors, with state of the same structure, so a fit state round-trips
-through numpy unchanged. Updates run without autograd and compute what the
-reference computes: moments in float32, bias correction by ``b ** (step +
-1)``, ``weight_decay * p`` added to the update, and ``-lr_t * u`` cast back
-to the parameter dtype (which `torch.optim.AdamW` does not).
+tensors, with state a tree as well, so a train state round-trips through
+numpy and `distributed.checkpoint` unchanged. Updates run without autograd
+and compute what the reference computes. AdamW: moments in float32, bias
+correction by ``b ** (step + 1)``, ``weight_decay * p`` added to the
+update, and ``-lr_t * u`` cast back to the parameter dtype (which
+`torch.optim.AdamW` does not). Adafactor: momentum-free, row and column
+second moments for every leaf of two or more dims (``{"vr", "vc"}``), a
+full one for vectors (``{"v"}``), RMS update clipping and a step relative
+to the parameter's RMS.
 
 Step counts and learning rates are 0-d float32 tensors on the host; a 0-d
 host tensor multiplies a CUDA tensor without a sync.
@@ -39,12 +43,15 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
-def tree_leaves(tree) -> list:
-    """The tensors of a tree, in `tree_map`'s order."""
+def tree_leaves(tree, is_leaf=None) -> list:
+    """The tensors of a tree, in `tree_map`'s order; a node for which
+    ``is_leaf`` holds (Adafactor's per-leaf state dicts) is a leaf too."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [x for k in tree for x in tree_leaves(tree[k])]
+        return [x for k in tree for x in tree_leaves(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in tree_leaves(t)]
+        return [x for t in tree for x in tree_leaves(t, is_leaf)]
     return [tree]
 
 
@@ -120,6 +127,72 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
         return unf(0), {"m": unf(1), "v": unf(2)}
 
     return Optimizer(init, update)
+
+
+def adafactor(lr=1e-2, decay=0.8, eps1=1e-30, eps2=1e-3,
+              clip_threshold=1.0) -> Optimizer:
+    """Shazeer & Stern 2018, momentum-free: O(n+m) state for (n,m) matrices."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def _factored(shape) -> bool:
+        return len(shape) >= 2
+
+    def init(params):
+        def one(p):
+            zeros = lambda shape: torch.zeros(shape, dtype=torch.float32,
+                                              device=p.device)
+            if _factored(p.shape):
+                return {"vr": zeros(p.shape[:-1]),
+                        "vc": zeros(p.shape[:-2] + p.shape[-1:])}
+            return {"v": zeros(p.shape)}
+        return tree_map(one, params)
+
+    def is_state(x) -> bool:
+        return isinstance(x, dict) and ("v" in x or "vr" in x)
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        step_f = _f32(step) + 1.0
+        beta = 1.0 - step_f ** (-decay)
+        lr_t = lr_fn(step)
+
+        def upd(g, s, p):
+            g = g.float()
+            g2 = g * g + eps1
+            if _factored(g.shape):
+                vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
+                vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+                rfac = (vr / torch.mean(vr, dim=-1, keepdim=True))[..., None]
+                u = g * torch.rsqrt(rfac * vc[..., None, :] + eps1)
+                new_s = {"vr": vr, "vc": vc}
+            else:
+                v = beta * s["v"] + (1 - beta) * g2
+                u = g * torch.rsqrt(v + eps1)
+                new_s = {"v": v}
+            # update clipping (RMS)
+            rms_u = torch.sqrt(torch.mean(u * u) + eps1)
+            u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
+            scale = torch.clamp(torch.sqrt(torch.mean(
+                p.float() ** 2)), min=eps2)  # relative step size
+            return (-lr_t * scale * u).to(p.dtype), new_s
+
+        out = [upd(*t) for t in zip(tree_leaves(grads),
+                                    tree_leaves(state, is_state),
+                                    tree_leaves(params))]
+        return (tree_unflatten(grads, [o[0] for o in out]),
+                tree_unflatten(grads, [o[1] for o in out]))
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(kind: str, lr=None) -> Optimizer:
+    """The config's optimizer at the reference's default rates (AdamW
+    3e-4, Adafactor 1e-2) unless `lr` is given."""
+    if kind == "adamw":
+        return adamw(lr=lr or 3e-4)
+    if kind == "adafactor":
+        return adafactor(lr=lr or 1e-2)
+    raise ValueError(f"unknown optimizer {kind!r}")
 
 
 @torch.no_grad()

@@ -1,1 +1,2 @@
-"""Training steps of the port (`repro.training`): the generic fit step."""
+"""Training steps of the port (`repro.training`): the LM train, serve and
+prefill steps and the generic fit step."""

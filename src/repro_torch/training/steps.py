@@ -1,16 +1,88 @@
-"""The generic fit step: one AdamW step of a differentiable objective.
+"""The LM train, serve and prefill steps, and the generic fit step.
 
-The port of `repro.training.steps.make_fit_step` (the LM train, serve and
-prefill steps come with the LM substrate).
+The port of `repro.training.steps` (`train_state_specs` and `input_specs`,
+which feed the dry-run, are not ported yet). Every step runs eagerly on the
+device its tensors are on. Gradients come from `torch.autograd.grad` on
+leaf copies of the parameters; updates run without autograd. The train
+state is the reference's ``{"params", "opt", "step"}``, which
+`distributed.checkpoint` saves as it saves the reference's.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm
+from repro_torch.optim import make_optimizer
 from repro_torch.optim.optimizers import (apply_updates, clip_by_global_norm,
                                           tree_leaves, tree_map,
                                           tree_unflatten)
+
+__all__ = ["make_train_step", "make_fit_step", "make_serve_step",
+           "make_prefill_step", "make_optimizer"]
+
+
+def _microbatch(batch: dict, i: int, k: int, b: int) -> dict:
+    """Microbatch `i` of `k`: rows of every entry, and of the M-RoPE
+    ``(3, B, S)`` positions along their batch dim (dim 1)."""
+    out = {}
+    for key, v in batch.items():
+        if key == "positions" and v.ndim == 3:
+            n = v.shape[1] // k
+            out[key] = v[:, i * n:(i + 1) * n]
+        else:
+            out[key] = v[i * (b // k):(i + 1) * (b // k)]
+    return out
+
+
+def make_train_step(cfg: ArchConfig, *, lr=None, aux_weight: float = 0.01,
+                    chunk: int = 2048, accum: int = 1):
+    """``(opt, train_step)``; ``train_step(state, batch) -> (new_state,
+    metrics)``.
+
+    accum > 1: microbatch gradient accumulation (when it divides the
+    batch), activation peak / accum. Each microbatch's gradients are cast
+    to ``cfg.grad_dtype`` and divided by the count before they are summed;
+    the sum is clipped to a global norm of 1. Metrics (``ce``, ``aux``,
+    ``loss``, ``grad_norm``) are detached 0-d tensors: the loss and its
+    parts are the microbatch means, the norm is before clipping. The
+    parameter layout (unrolled or stacked) is read from the tree.
+    """
+    opt = make_optimizer(cfg.optimizer, lr)
+    acc_dtype = getattr(torch, cfg.grad_dtype)
+
+    def train_step(state, batch):
+        params, opt_state, step = state["params"], state["opt"], state["step"]
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        live = tree_unflatten(params, leaves)
+        # the batch size of the first entry in JAX's (sorted) order
+        b = batch[sorted(batch)[0]].shape[0]
+        k = accum if b % accum == 0 else 1
+        loss, metrics, grads = 0.0, None, None
+        for i in range(k):
+            ls, mt = lm.loss_fn(cfg, live, _microbatch(batch, i, k, b),
+                                aux_weight=aux_weight, chunk=chunk)
+            g = torch.autograd.grad(ls, leaves, allow_unused=True,
+                                    materialize_grads=True)
+            gf = [x.to(acc_dtype) / k for x in g]
+            del g
+            grads = gf if grads is None else [
+                a + c for a, c in zip(grads, gf)]
+            loss = loss + ls.detach() / k
+            mt = {n: v.detach() / k for n, v in mt.items()}
+            metrics = mt if metrics is None else {
+                n: metrics[n] + mt[n] for n in mt}
+        grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads),
+                                           1.0)
+        updates, new_opt = opt.update(grads, opt_state, params, step)
+        del grads
+        new_params = apply_updates(params, updates)
+        metrics = dict(metrics, loss=loss, grad_norm=gnorm)
+        return ({"params": new_params, "opt": new_opt, "step": step + 1},
+                metrics)
+
+    return opt, train_step
 
 
 def make_fit_step(opt, loss_fn, *, clip: float = 1.0):
@@ -40,3 +112,25 @@ def make_fit_step(opt, loss_fn, *, clip: float = 1.0):
                 metrics)
 
     return fit_step
+
+
+def make_serve_step(cfg: ArchConfig):
+    """``serve_step(params, cache, tokens) -> (next_tokens (B,1) int32,
+    logits, new_cache)``: one greedy decode step, without autograd."""
+    @torch.no_grad()
+    def serve_step(params, cache, tokens):
+        logits, new_cache = lm.decode_step(cfg, params, cache, tokens)
+        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return next_tok[:, None], logits, new_cache
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ArchConfig, *, chunk: int = 2048):
+    """``prefill_step(params, batch) -> logits``, without autograd."""
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, _ = lm.forward(cfg, params, batch, chunk=chunk)
+        return logits
+
+    return prefill_step

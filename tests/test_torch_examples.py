@@ -136,3 +136,15 @@ def test_distributed_example_matches_naive(tmp_path, monkeypatch):
                          distributed_stencil.T1 + distributed_stencil.T2)
     assert_close(rep["out"][0], want[0], tspec.tolerance("f32"))
     assert_close(rep["out"][1], want[1], tspec.tolerance("f32"))
+
+
+def test_train_lm_trains_three_reduced_steps(tmp_path):
+    from repro_torch.distributed import checkpoint
+    from repro_torch.examples import train_lm
+    state = train_lm.main(["--device", "cpu", "--steps", "3", "--batch",
+                           "2", "--seq", "32", "--ckpt", str(tmp_path),
+                           "--ckpt-every", "3"])
+    assert int(state["step"]) == 3
+    assert checkpoint.all_steps(str(tmp_path)) == [3]
+    assert all(bool(torch.isfinite(p).all())
+               for p in state["params"]["blocks"][0]["ffn"].values())

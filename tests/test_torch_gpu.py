@@ -781,3 +781,83 @@ def test_bench_gates_hold_on_the_card_at_small_sizes(cuda, name, tmp_path,
         k1 = [r for r in b.rows if ".k1." in r.name]
         assert sum(r.data["fits"] for r in k1) >= 2
         assert all(r.data["bitwise"] for r in k1 if r.data["fits"])
+
+
+# ---------------------------------------------------------------------------
+# the LM training path (chip_smoke.py phase 10 at reduced size): no stencil
+# kernel runs here; the card's matmuls against the same steps on the CPU
+# ---------------------------------------------------------------------------
+
+def _lm_cfg(arch, **kw):
+    import dataclasses
+    from repro_torch import configs as tc
+    return dataclasses.replace(tc.reduced(tc.get(arch)), dtype="float32",
+                               **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-1b", "mamba2-130m",
+                                  "mixtral-8x7b", "jamba-1.5-large-398b"])
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_init
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.training import steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg(arch)
+    params = tree_init(lm.param_specs(cfg), seed=1, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
+                         dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        opt, train = steps.make_train_step(cfg, chunk=16)
+        state = {"params": p, "opt": opt.init(p),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+        out[str(dev)] = train(state, batch)[1]
+    got, want = out[str(cuda)], out["cpu"]
+    for k in want:
+        assert abs(float(got[k]) - float(want[k])) <= 1e-4 * max(
+            1.0, abs(float(want[k]))), k
+
+
+@pytest.mark.gpu
+def test_lm_launcher_resumes_on_the_card(cuda, tmp_path):
+    import shutil
+    from repro_torch.launch import train
+    args = ["--device", "cuda", "--steps", "4", "--batch", "2", "--seq",
+            "64", "--ckpt-every", "2"]
+    straight, resumed = [], []
+    train.main(args + ["--ckpt", str(tmp_path / "a")], records=straight)
+    (tmp_path / "b").mkdir()
+    shutil.copytree(tmp_path / "a" / "step_0000000002",
+                    tmp_path / "b" / "step_0000000002")
+    train.main(args + ["--ckpt", str(tmp_path / "b")], records=resumed)
+    assert [r["step"] for r in resumed] == [2, 3]
+    for a, b in zip(straight[2:], resumed):
+        assert abs(a["loss"] - b["loss"]) <= 1e-3 * abs(a["loss"])
+    assert all(torch.isfinite(torch.tensor(r["loss"])) for r in straight)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-1b", "mamba2-130m"])
+def test_lm_decode_matches_forward_on_the_card(cuda, arch):
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg(arch, n_layers=4)
+    params = tree_init(lm.param_specs(cfg), seed=5, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 24),
+                         generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32).to(cuda)
+    with torch.no_grad():
+        want, _ = lm.forward(cfg, params, {"tokens": toks}, chunk=8)
+        cache = lm.init_cache(cfg, 1, 24, device=cuda)
+        got = []
+        for t in range(24):
+            lg, cache = lm.decode_step(cfg, params, cache, toks[:, t:t + 1])
+            got.append(lg)
+    got = torch.cat(got, dim=1)
+    assert torch.allclose(got, want, rtol=1e-3, atol=1e-3)

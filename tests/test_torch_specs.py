@@ -160,6 +160,10 @@ def test_modules_import_no_jax_and_no_reference():
             "import repro_torch.examples.custom_stencil\n"
             "import repro_torch.examples.heat3d_train\n"
             "import repro_torch.examples.distributed_stencil\n"
+            "import repro_torch.configs, repro_torch.models.lm\n"
+            "import repro_torch.data.pipeline, repro_torch.launch.train\n"
+            "import repro_torch.training.steps\n"
+            "import repro_torch.examples.train_lm\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
             "       or m.startswith(('jax.', 'repro.'))]\n"
             "print(bad)\n")
