@@ -46,7 +46,8 @@ failure so the script exits non-zero:
    first, the plan the model alone picks; then a second tune_one that
    must measure nothing;
 3. the main path at the production grid: ops.mwd(plan="auto") at 512^3 for
-   the four paper ops, 8 steps, resolving the tune phase's measured entry,
+   the four paper ops, 8 steps (each problem drawn on the card,
+   random_problem), resolving the tune phase's measured entry,
    against ops.naive on the card, K1 against its plain version on the
    same inputs, K1's time by CUDA events beside its compulsory bound and
    the schedule's own traffic bound (models.mwd_schedule_bytes), the whole
@@ -97,7 +98,8 @@ failure so the script exits non-zero:
    25-point ops where its layout changes: t_block 6 (y sub-tiles), a block
    of 80 rows (y sub-tiles) and t_block 8 in f32 and f64 (a pass split
    into launches); then ops.spatial
-   and ops.ghostzone at 512^3 x 8 steps with default parameters against
+   and ops.ghostzone at 512^3 x 8 steps (drawn on the card) with default
+   parameters against
    ops.naive, K2 and K3 against their plain versions on the same inputs,
    their times by CUDA events beside their bounds (K2 also beside its tile
    bound, models.sweep_tile_bytes; K3 beside its window bound,
@@ -177,10 +179,12 @@ failure so the script exits non-zero:
 10. the LM substrate's training path at full width through its launcher
    (repro_torch.launch.train.main, random weights from seed 0, sequence
    4096, the repo's train_4k length): 10a llama3.2-1b (16 layers, d_model
-   2048, 1.24 B parameters, bf16, AdamW) for 4 steps at batch 2 with a
-   checkpoint every 2 steps, then a second run resumed from the step-2
-   checkpoint (writing none) whose losses at steps 2-3 equal the straight
-   run's within 1e-3 relative; 10b gemma3-1b (local window 512, qk-norm, tanh-gelu,
+   2048, 1.24 B parameters, bf16, AdamW) for 3 steps at batch 2 with a
+   checkpoint at step 2, then a second run resumed from it (writing
+   none) whose loss at step 2 equals the straight run's within 1e-3
+   relative and whose end state (params, AdamW moments, step) equals the
+   straight run's, leaf by leaf, within 1e-3 of each leaf's largest
+   magnitude; 10b gemma3-1b (local window 512, qk-norm, tanh-gelu,
    head_dim 256, vocab 262144) for 2 steps at batch 2; 10c mamba2-130m
    (SSD, chunk 256) for 2 steps at batch 4; every loss finite; 10d
    llama3.2-1b at full width in float32 (the 10a weights widened):
@@ -188,10 +192,31 @@ failure so the script exits non-zero:
    their largest magnitude. One `lm_train` line per config: parameters,
    tokens a step, step ms (median of the steps after the first) and
    tokens/s, peak memory, the FLOPs of a step (6 N tokens plus attention
-   or SSD) and their time at the spec's bf16 peak, and, from one more
-   step under torch.profiler, the device's idle share and its five
-   costliest operations. No stencil kernel runs in this phase: the LM
-   path's products are torch.matmul, as the reference leaves them to XLA.
+   or SSD) and their time at the spec's bf16 peak, beside
+   launch.roofline.model_flops and the FLOPs launch.dryrun.count_step
+   counts for the same step on meta tensors (remat included), and, from
+   one more step under torch.profiler, the device's idle share and its
+   five costliest operations. No stencil kernel runs in this phase: the
+   LM path's products are torch.matmul, as the reference leaves them to
+   XLA.
+11. the LM substrate's serving path at full width through its launcher
+   (repro_torch.launch.serve.main, seed-0 weights placed by
+   training.sharding.place on the card's mesh, numpy-seeded prompts,
+   prefill_into_cache, a greedy decode loop): 11a llama3.2-1b, batch 8,
+   prompt 128, 128 tokens; 11b gemma3-1b, batch 8, prompt 512, 128
+   tokens (the local layers' 512-slot ring wraps); 11c mamba2-130m,
+   batch 8, prompt 128, 128 tokens (its O(1) state). Each runs twice:
+   the ids lie in [0, vocab) and repeat. Checks: prefill_into_cache's
+   last logits at float32 over a 32-token prompt against forward's last
+   position within 1e-3 of their largest magnitude; sharding.place of the
+   parameters on the one-card mesh requests from the caching allocator
+   exactly the bytes local_shape gives (its requested_bytes). One
+   `lm_serve` line per config: prefill ms, decode ms a token (median of
+   synchronized steps), tokens/s, peak memory, the decode step's bound
+   (launch.roofline.analytic_hbm_bytes for the decode kind at this batch
+   and cache length over the spec's HBM rate) and its share, and one
+   more decode step under torch.profiler (idle share, five costliest
+   operations). No stencil kernel runs in this phase either.
 
 Before the last line come one `baseline` JSON line per (op, method) and a
 JSON object with one entry per kernel (K1's launches from phases 4, 4b,
@@ -1068,7 +1093,7 @@ def phase_main_path(tally: Tally, dev, ptxas: dict) -> dict:
     rows = {}
     for name, spec in st.SPECS.items():
         t_gen = time.perf_counter()
-        state, coeffs = st.make_problem(spec, MAIN_GRID, seed=0, device=dev)
+        state, coeffs = st.random_problem(spec, MAIN_GRID, seed=0, device=dev)
         t_gen = time.perf_counter() - t_gen
         plan, source = registry.resolve_plan(spec, MAIN_GRID, word_bytes=4)
         check(plan == ops.resolve_plan(spec, state, "auto")
@@ -1751,7 +1776,7 @@ def phase_baselines_main(tally: Tally, dev,
         ("ghostzone", "fused", fu, plain_ghostzone,
          dict(passes=-(-MAIN_STEPS // tb), outputs=2)))
     for name, spec in st.SPECS.items():
-        state, coeffs = st.make_problem(spec, MAIN_GRID, seed=0, device=dev)
+        state, coeffs = st.random_problem(spec, MAIN_GRID, seed=0, device=dev)
         arrays, scalars = ir.split_coeffs(spec, coeffs)
         naive = ops.naive(spec, state, coeffs, MAIN_STEPS)
         # timed on a second run: the first grows the caching allocator
@@ -2717,7 +2742,7 @@ def phase_benches(dev) -> dict:
 
 # phase 10: the LM training path at full width, (arch, steps, batch)
 LM_SEQ = 4096
-LM_RUNS = (("llama3.2-1b", 4, 2), ("gemma3-1b", 2, 2),
+LM_RUNS = (("llama3.2-1b", 3, 2), ("gemma3-1b", 2, 2),
            ("mamba2-130m", 2, 4))
 LM_DECODE_POSITIONS = 16
 
@@ -2774,19 +2799,55 @@ def lm_line(arch, cfg, batch, records, peak, prof) -> dict:
     """One `lm_train` line from a launcher run's records."""
     from repro_torch.models import lm
     from repro_torch.models.params import count_params
-    n_params = count_params(lm.param_specs(cfg))
+    from repro_torch.launch import dryrun, roofline
+    specs = lm.param_specs(cfg)
+    n_params = count_params(specs)
     tokens = batch * LM_SEQ
     step_ms = statistics.median(r["ms"] for r in records[1:])
     flops = lm_step_flops(cfg, n_params, batch, LM_SEQ)
     bound_ms = flops / chip().peak_flops_bf16 * 1e3
+    n_total, n_active = roofline.active_params(cfg, specs)
+    t = time.perf_counter()
+    counted, _ = dryrun.count_step(cfg, "train", batch, LM_SEQ,
+                                   chunk=min(LM_SEQ, 2048))
     return {"arch": arch, "params": n_params, "batch": batch,
             "seq": LM_SEQ, "tokens_per_step": tokens,
             "steps": len(records), "first_step_ms": records[0]["ms"],
             "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
             "peak_gb": peak, "step_flops": flops,
+            "model_flops": roofline.model_flops(
+                cfg, {"kind": "train", "global_batch": batch,
+                      "seq_len": LM_SEQ}, n_total, n_active),
+            "meta_counted_flops": counted,
+            "meta_count_s": time.perf_counter() - t,
             "bound_ms_bf16_peak": bound_ms, "mfu": bound_ms / step_ms,
             "losses": [r["loss"] for r in records],
             "profiled_step": prof}
+
+
+def lm_check_resumed_state(want, got) -> dict:
+    """10a: every leaf of the resumed run's end state (params, AdamW
+    moments, step) against the straight run's, within 1e-3 of the leaf's
+    largest magnitude; reports whether all of them are bitwise equal."""
+    import torch
+    from repro_torch.optim.optimizers import tree_paths
+    want, got = dict(tree_paths(want)), dict(tree_paths(got))
+    check(sorted(want) == sorted(got), "10a resumed state has other leaves")
+    names = sorted(want)
+    with torch.no_grad():
+        errs = torch.stack([
+            (got[n].float() - want[n].float()).abs().max().to("cpu")
+            for n in names]).tolist()
+        scales = torch.stack([want[n].float().abs().max().to("cpu")
+                              for n in names]).tolist()
+        same = all(torch.equal(got[n], want[n]) for n in names)
+    worst = max(range(len(names)), key=lambda i: errs[i] / (scales[i] or 1))
+    check(all(e <= 1e-3 * s for e, s in zip(errs, scales)),
+          f"10a resumed state differs: {names[worst]} max err "
+          f"{errs[worst]} vs 1e-3 x {scales[worst]}")
+    return {"leaves": len(names), "bitwise": same,
+            "worst_leaf": names[worst], "max_abs_err": errs[worst],
+            "max_abs": scales[worst]}
 
 
 def phase_lm(dev) -> dict:
@@ -2835,23 +2896,24 @@ def phase_lm(dev) -> dict:
             if arch == "llama3.2-1b":
                 line["decode_f32"] = lm_check_decode(cfg, state["params"],
                                                      dev)
-                del state
-                torch.cuda.empty_cache()
-                check(checkpoint.all_steps(ckpt) == [2, 4],
+                check(checkpoint.all_steps(ckpt) == [2],
                       f"10a checkpoints {checkpoint.all_steps(ckpt)}")
-                shutil.rmtree(os.path.join(ckpt, "step_0000000004"))
                 resumed = []
                 t_main = time.perf_counter()
                 # resumed from step 2; it writes no checkpoint of its own
-                train.main(argv[:-1] + ["100"], records=resumed)
+                end = train.main(argv[:-1] + ["100"], records=resumed)
                 line["resume_main_s"] = time.perf_counter() - t_main
-                check([r["step"] for r in resumed] == [2, 3],
+                check([r["step"] for r in resumed] == [2],
                       f"10a resumed steps {[r['step'] for r in resumed]}")
                 rel = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
                        for a, b in zip(records[2:], resumed)]
                 check(max(rel) <= 1e-3, f"10a resumed losses differ by {rel}")
                 line["resumed_losses"] = [r["loss"] for r in resumed]
                 line["resume_rel_err"] = max(rel)
+                # step 2's update read the restored moments and step count:
+                # the resumed run's end state is the straight run's
+                line["resume_state"] = lm_check_resumed_state(state, end)
+                del state, end
             else:
                 del state
             line["phase_s"] = time.perf_counter() - t
@@ -2862,6 +2924,153 @@ def phase_lm(dev) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 10 lm: {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
+# phase 11: the LM serving path at full width, (arch, batch, prompt, gen)
+LM_SERVE_RUNS = (("llama3.2-1b", 8, 128, 128), ("gemma3-1b", 8, 512, 128),
+                 ("mamba2-130m", 8, 128, 128))
+LM_PREFILL_CHECK = 32       # prompt length of the float32 prefill check
+
+
+def rewind(cache):
+    """A decode cache with every ``length`` one step back."""
+    if isinstance(cache, dict):
+        return {k: v - 1 if k == "length" else rewind(v)
+                for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [rewind(v) for v in cache]
+    return cache
+
+
+def lm_check_prefill(cfg, params, dev) -> dict:
+    """11: float32 prefill_into_cache over a LM_PREFILL_CHECK-token prompt
+    against forward's last-position logits over the same prompt."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import tree_map
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_PREFILL_CHECK),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    with torch.no_grad():
+        want, _ = lm.forward(cfg32, p32, {"tokens": toks})
+        got, _ = serve.prefill_into_cache(cfg32, p32, toks, 1)
+    want = want[:, -1:]
+    scale = float(want.abs().max())
+    err = max_err(got, want)
+    check(bool(torch.isfinite(got).all()) and err <= 1e-3 * scale,
+          f"11 {cfg.name}: prefill logits vs forward max err {err} vs "
+          f"1e-3 x {scale}")
+    return {"prompt": LM_PREFILL_CHECK, "max_abs_err": err,
+            "max_abs_logit": scale}
+
+
+def lm_check_place(cfg, dev) -> dict:
+    """11: sharding.place of the parameters on the one-card mesh requests
+    from the caching allocator exactly the per-device bytes local_shape
+    gives (its `requested_bytes`; the blocks it hands out are rounded up
+    and may keep an unsplit remainder, reported beside)."""
+    import torch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_sds
+    from repro_torch.optim.optimizers import tree_map, tree_paths
+    from repro_torch.training import sharding as shd
+    specs = lm.param_specs(cfg)
+    mesh = make_debug_mesh((1, 1), devices=[dev])
+    shards = shd.param_shardings(mesh, specs)
+    sds = tree_sds(specs)
+    host = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype), sds)
+    want = shd.local_bytes(sds, shards)
+
+    def counters():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_stats(dev)["requested_bytes.all.current"],
+                torch.cuda.memory_allocated(dev))
+
+    req0, alloc0 = counters()
+    placed = shd.place(host, shards)
+    req1, alloc1 = counters()
+    on_card = all(t.device == dev for _, t in tree_paths(placed))
+    del placed
+    check(on_card and req1 - req0 == want,
+          f"11 {cfg.name}: place requested {req1 - req0} bytes, "
+          f"local_shape gives {want}")
+    return {"local_bytes": want, "requested_bytes": req1 - req0,
+            "allocated_bytes": alloc1 - alloc0}
+
+
+def phase_lm_serve(dev) -> dict:
+    """Phase 11: the LM serving path at full width through
+    launch.serve.main, twice per config (the ids repeat and lie in
+    [0, vocab)); one more decode step under the profiler on the state the
+    run left; the decode step's HBM bound; the float32 prefill check and
+    the placement check. One `lm_serve` line per config."""
+    import torch
+    from repro_torch.launch import roofline, serve
+    from repro_torch.models import lm
+    from repro_torch.training import steps as tsteps
+    t0 = time.perf_counter()
+    lines = {}
+    for arch, batch, prompt, gen in LM_SERVE_RUNS:
+        t = time.perf_counter()
+        argv = ["--arch", arch, "--no-reduced", "--batch", str(batch),
+                "--prompt-len", str(prompt), "--gen", str(gen),
+                "--device", "cuda"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_main = time.perf_counter()
+        rec = serve.main(argv)
+        main_s = time.perf_counter() - t_main
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        cfg, ids = rec["cfg"], rec["ids"]
+        check(tuple(ids.shape) == (batch, gen)
+              and int(ids.min()) >= 0 and int(ids.max()) < cfg.vocab_size,
+              f"11 {arch}: ids {tuple(ids.shape)} in "
+              f"[{int(ids.min())}, {int(ids.max())}], vocab {cfg.vocab_size}")
+        serve_step = tsteps.make_serve_step(cfg)
+        params, toks = rec["params"], rec["next"]
+        # the run's last step again: every cache length one step back, so
+        # it writes the last slot and reads what that step read
+        cache = rewind(rec["cache"])
+        prof = device_split(lambda: serve_step(params, cache, toks))
+        check(prof is not None, f"11 {arch}: the profiler saw no device "
+              "activity")
+        prefill_check = lm_check_prefill(cfg, params, dev)
+        timing = {k: rec[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                      "tokens_per_s")}
+        del rec, params, cache, toks
+        torch.cuda.empty_cache()
+        t_again = time.perf_counter()
+        again = serve.main(argv)
+        again_s = time.perf_counter() - t_again
+        check(torch.equal(again["ids"], ids),
+              f"11 {arch}: a second serve with seed 0 gave other ids")
+        del again
+        torch.cuda.empty_cache()
+        place = lm_check_place(cfg, dev)
+        n_total, n_active = roofline.active_params(cfg, lm.param_specs(cfg))
+        hbm = roofline.analytic_hbm_bytes(
+            cfg, {"kind": "decode", "global_batch": batch,
+                  "seq_len": prompt + gen}, n_total, n_active, 1)
+        bound_ms = hbm / chip().hbm_bw * 1e3
+        line = {"arch": arch, "params": n_total, "batch": batch,
+                "prompt_len": prompt, "gen": gen, **timing,
+                "peak_gb": peak, "decode_hbm_bytes": hbm,
+                "decode_bound_ms": bound_ms,
+                "decode_bound_share": bound_ms
+                / timing["decode_ms_per_token"],
+                "profiled_step": prof, "ids_in_range": True,
+                "ids_repeat": True, "prefill_f32": prefill_check,
+                "place": place, "main_s": main_s, "again_s": again_s,
+                "phase_s": time.perf_counter() - t}
+        lines[arch] = line
+        log("lm_serve " + json.dumps(line))
+    log(f"phase 11 lm serving: {time.perf_counter() - t0:.1f} s")
     return lines
 
 
@@ -3220,6 +3429,7 @@ def main() -> int:
         dist = phase_distributed(tally, dev)
         benches = phase_benches(dev)
         phase_lm(dev)
+        phase_lm_serve(dev)
     finally:
         shutil.rmtree(plans, ignore_errors=True)
     k = rows[SERVE_OP]

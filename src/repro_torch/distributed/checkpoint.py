@@ -31,18 +31,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.optim.optimizers import tree_paths
+
 _COMMIT = "COMMIT"
-
-
-def _tree_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
-    """``(keystr, leaf)`` pairs in the reference's flattening order."""
-    if isinstance(tree, dict):
-        return [pair for k in sorted(tree)
-                for pair in _tree_paths(tree[k], f"{prefix}[{k!r}]")]
-    if isinstance(tree, (list, tuple)):
-        return [pair for i, v in enumerate(tree)
-                for pair in _tree_paths(v, f"{prefix}[{i}]")]
-    return [(prefix, tree)]
 
 
 def _rebuild(tree, leaves: dict, prefix: str = ""):
@@ -56,22 +47,27 @@ def _rebuild(tree, leaves: dict, prefix: str = ""):
 
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
-    """A host copy of one leaf and its dtype name for the manifest."""
+    """A host copy of one leaf and its dtype name for the manifest (a
+    device leaf's ``.cpu()`` is that copy; a host leaf is copied)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
+        if t.device == leaf.device:
+            t = t.clone()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view("V2").copy(), "bfloat16"
-        a = t.numpy().copy()
+            return t.view(torch.int16).numpy().view("V2"), "bfloat16"
+        a = t.numpy()
         return a, str(a.dtype)
     a = np.asarray(leaf)
     return a, str(a.dtype)
 
 
 def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """A tensor over a writable array `np.load` returned (no copy)."""
+    if not arr.flags.writeable:
+        arr = arr.copy()
     if arr.dtype.kind == "V" or dtype_name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(np.array(arr))
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save(directory: str, step: int, tree, *, keep_last: int = 3) -> str:
@@ -81,7 +77,7 @@ def save(directory: str, step: int, tree, *, keep_last: int = 3) -> str:
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
     try:
         arrays, dtypes = {}, {}
-        for name, leaf in _tree_paths(tree):
+        for name, leaf in tree_paths(tree):
             arrays[name], dtypes[name] = _to_numpy(leaf)
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         manifest = {
@@ -146,7 +142,7 @@ def restore(directory: str, tree_like, *, step: int | None = None,
     dtypes = {e["name"]: e["dtype"] for e in manifest["leaves"]}
     with np.load(os.path.join(path, "arrays.npz")) as data:
         arrays = {k: data[k] for k in data.files}
-    pairs = _tree_paths(tree_like)
+    pairs = tree_paths(tree_like)
     missing = [n for n, _ in pairs if n not in arrays]
     if missing:
         raise ValueError(f"checkpoint at step {step} missing leaves {missing}")
@@ -178,7 +174,7 @@ class AsyncCheckpointer:
         snapshot = _rebuild(tree, {
             name: (leaf.detach().to("cpu", copy=True)
                    if isinstance(leaf, torch.Tensor) else np.array(leaf))
-            for name, leaf in _tree_paths(tree)})
+            for name, leaf in tree_paths(tree)})
 
         def _run():
             try:

@@ -47,6 +47,7 @@ from repro_torch.core.mwd import MWDPlan
 from repro_torch.distributed import halo
 from repro_torch.kernels import stencil_mwd
 from repro_torch.kernels._host import edge_pad
+from repro_torch.models.params import TensorSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,6 +347,28 @@ def canonical_coeffs(spec: st.StencilSpec, coeffs):
     vector pair; K1 takes the scalars as Python floats)."""
     arrays, scalars = ir.split_coeffs(spec, coeffs)
     return arrays, tuple(float(x) for x in scalars)
+
+
+def coeff_sds(spec: st.StencilSpec, grid_shape, dtype=torch.float32):
+    """`TensorSpec`s of the canonical coefficient pair on `grid_shape`:
+    the stacked arrays and the scalar vector."""
+    return (TensorSpec((spec.n_coeff_arrays,) + tuple(grid_shape), dtype),
+            TensorSpec((spec.n_scalars,), dtype))
+
+
+def extended_coeff_sds(spec: st.StencilSpec, mesh, grid_shape, t_block: int,
+                       dtype=torch.float32):
+    """Global `TensorSpec`s of the hoisted (pre-extended) coefficients:
+    every shard's block grows by the deep halo g on z and y, x by g."""
+    gs = GridSharding(mesh)
+    g = spec.radius * t_block
+    nz, ny, nx = grid_shape
+    n_z, n_y = gs.counts()
+    ext = (nz + 2 * g * n_z, ny + 2 * g * n_y, nx + 2 * g)
+    if spec.n_coeff_arrays:
+        return (TensorSpec((spec.n_coeff_arrays,) + ext, dtype),
+                TensorSpec((spec.n_scalars,), dtype))
+    return coeff_sds(spec, grid_shape, dtype)
 
 
 def local_extended_shape(spec: st.StencilSpec, mesh, grid_shape,

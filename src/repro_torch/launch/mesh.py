@@ -1,15 +1,18 @@
-"""Device meshes for the distributed stencil stepper.
+"""Device meshes: the distributed stencil stepper's and the LM's.
 
-The port of `repro.launch.mesh`, stencil half. The port runs one process
-that holds every shard of the grid as a tensor on its mesh device, as the
-reference drives every device of its mesh from one controller: a `Mesh` is
-an object array of `torch.device`s plus axis names. A device may appear
-more than once: ``[cuda:0] * 4`` is how one card hosts a 2x2 mesh, whose
-halo exchange is then device-to-device copies on that card (peer copies
-over NVLink where the devices differ).
+The port of `repro.launch.mesh`. The port runs one process that holds
+every shard of the grid as a tensor on its mesh device, as the reference
+drives every device of its mesh from one controller: a `Mesh` is an object
+array of `torch.device`s plus axis names. A device may appear more than
+once: ``[cuda:0] * 4`` is how one card hosts a 2x2 mesh, whose halo
+exchange is then device-to-device copies on that card (peer copies over
+NVLink where the devices differ).
 
-`make_production_mesh`, `batch_axes` and `model_axis` belong to the LM
-half and are not ported yet.
+The LM half: `production_layout` and `make_production_mesh` (16x16
+``('data', 'model')``, or 2x16x16 with ``'pod'`` in front), `batch_axes` and `model_axis`, which
+`training.sharding` reads, and `abstract_mesh`, a mesh of ``meta``
+devices: the port's ``jax.sharding.AbstractMesh``, on which the dry-run
+prices 256 and 512 devices that no single host holds.
 """
 
 from __future__ import annotations
@@ -77,6 +80,28 @@ def make_mesh(shape, axes, devices=None) -> Mesh:
     return Mesh(grid.reshape(tuple(shape)), tuple(axes))
 
 
+def production_layout(multi_pod: bool = False) -> tuple[tuple, tuple]:
+    """``(shape, axes)`` of the production mesh: 16x16 = 256 devices
+    ``('data', 'model')``; two pods add a ``'pod'`` axis in front
+    (2x16x16)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The `production_layout` mesh over `devices` (default: the card's
+    devices round robin, `device_pool`)."""
+    return make_mesh(*production_layout(multi_pod), devices)
+
+
+def abstract_mesh(shape, axes) -> Mesh:
+    """A `Mesh` of `shape` whose every device is ``meta``: axis names and
+    sizes with no device behind them."""
+    return make_mesh(shape, axes,
+                     [torch.device("meta")] * int(np.prod(shape)))
+
+
 def make_debug_mesh(shape=(2, 2), axes=("data", "model"),
                     devices=None) -> Mesh:
     """Small mesh for tests and the chip check: ``devices=[cpu] * 4`` on
@@ -125,3 +150,13 @@ def make_process_mesh(devices=None) -> Mesh:
     rows = process_grid(tagged)
     flat = [getattr(d, "device", d) for row in rows for d in row]
     return make_mesh((len(rows), len(rows[0])), ("data", "model"), flat)
+
+
+def batch_axes(mesh: Mesh) -> tuple[str, ...]:
+    """Mesh axes the global batch is sharded over (DP/FSDP axes)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def model_axis(mesh: Mesh) -> str:
+    """Mesh axis model-parallel (TP) parameters are sharded over."""
+    return "model"

@@ -9,8 +9,10 @@ measurement, Sec. 7, for the ECM fit and for K1's phase fit; the
 distributed leg, the strong/weak scaling ladder and the overlap model's
 residuals, Sec. 4.2) and writes ``src/repro_torch/results/REPRODUCTION.md``.
 Its provenance names the card and power limit every point ran on, and the
-distributed sections say how many cards their shards shared. The dry-run
-and roofline sections wait for the LM substrate (ROADMAP.md item 13).
+distributed sections say how many cards their shards shared. Section 6
+renders ``dryrun.json`` (`repro_torch.launch.dryrun`) when it is there:
+the analytic multi-pod dry-run and roofline, priced on the device spec's
+data-sheet peaks, measured on no card.
 
 ``--check`` re-renders from the committed results and fails (exit 2) when
 the committed report drifts.
@@ -372,6 +374,126 @@ def _rate(x) -> str:
     return "inf" if x == float("inf") else f"{x:.3e}"
 
 
+# --- multi-pod dry-run tables (the reference's, over the analytic records)
+
+def _fmt_bytes(b) -> str:
+    if b is None:
+        return "-"
+    for unit, div in (("TiB", 2**40), ("GiB", 2**30), ("MiB", 2**20),
+                      ("KiB", 2**10)):
+        if b >= div:
+            return f"{b / div:.2f}{unit}"
+    return f"{b:.0f}B"
+
+
+def _ms(s) -> str:
+    return f"{s * 1e3:.2f}" if s is not None else "-"
+
+
+def dryrun_table(results: list[dict], mesh: str) -> str:
+    """Per-cell dry-run table (counted FLOPs and bytes) for one mesh.
+
+    `op B/dev` is every operator's operand and result bytes as eager
+    PyTorch runs the step (the reference's HLO bytes column); `temp/dev`
+    is "-": no compiler's memory analysis exists to read it from."""
+    rows = [("| arch | shape | status | flops/dev | op B/dev | model B/dev "
+             "| coll B/dev | args/dev | temp/dev | count s |"),
+            "|" + "---|" * 10]
+    for r in results:
+        if r.get("mesh") != mesh:
+            continue
+        if "skip" in r:
+            rows.append(f"| {r['arch']} | {r['shape']} | SKIP: {r['skip']} "
+                        + "| - " * 7 + "|")
+            continue
+        if "error" in r:
+            rows.append(f"| {r['arch']} | {r['shape']} | "
+                        f"ERROR: {r['error'][:60]} " + "| - " * 7 + "|")
+            continue
+        coll = sum(r["coll_bytes"].values())
+        peak = r["peak_bytes_per_device"]
+        temp = None if peak is None else peak - r["arg_bytes_per_device"]
+        rows.append(
+            f"| {r['arch']} | {r['shape']} | ok | "
+            f"{r['flops_per_device']:.2e} | "
+            f"{_fmt_bytes(r['bytes_per_device'])} | "
+            f"{_fmt_bytes(r['model_bytes_per_device'])} | "
+            f"{_fmt_bytes(coll)} | "
+            f"{_fmt_bytes(r['arg_bytes_per_device'])} | "
+            f"{_fmt_bytes(temp)} | "
+            f"{r['lower_s'] + r['compile_s']:.0f} |")
+    return "\n".join(rows)
+
+
+def bottleneck_note(r: dict) -> str:
+    """One-phrase diagnosis of a dry-run cell's dominant roofline term."""
+    d = r["dominant"]
+    coll = r["coll_bytes"]
+    if d == "collective":
+        top = max(coll, key=coll.get)
+        if top == "all-reduce":
+            return ("grad/activation all-reduce dominates: reduce-scatter "
+                    "rewrite or pod-compression moves it down")
+        if top == "all-to-all":
+            return "MoE dispatch all-to-all: larger capacity grouping helps"
+        return f"{top}-bound: overlap with compute / deeper halos"
+    if d == "memory":
+        return ("HBM streaming bound: raise arithmetic intensity "
+                "(temporal blocking / bigger microbatch)")
+    return "compute-bound: already at the tensor-core roof; fuse or quantize"
+
+
+def roofline_table(results: list[dict], mesh: str = "16x16") -> str:
+    """Three-term roofline table over one mesh's dry-run cells."""
+    rows = [("| arch | shape | t_compute ms | t_memory ms | t_coll ms | "
+             "dominant | MODEL_FLOPS | useful | bottleneck note |"),
+            "|" + "---|" * 9]
+    for r in results:
+        if r.get("mesh") != mesh or "skip" in r or "error" in r:
+            continue
+        rows.append(
+            f"| {r['arch']} | {r['shape']} | {_ms(r['t_compute'])} | "
+            f"{_ms(r['t_memory'])} | {_ms(r['t_collective'])} | "
+            f"**{r['dominant']}** | {r['model_flops_global']:.2e} | "
+            f"{r['useful_flops_ratio']:.2f} | {bottleneck_note(r)} |")
+    return "\n".join(rows)
+
+
+def dryrun_section(dr: list[dict]) -> list[str]:
+    """Section 6: the analytic dry-run tables and the roofline."""
+    out = ["## 6. Multi-pod dry-run & roofline (analytic)", ""]
+    out.append("Written by `python -m repro_torch.launch.dryrun --arch all "
+               "--shape all` into `dryrun.json`. Every")
+    out.append("figure here is analytic and measured nothing: each LM "
+               "cell's step ran once on `meta`")
+    out.append("tensors (no storage, no card) under "
+               "`torch.utils.flop_counter` and an operator-bytes counter,")
+    out.append("divided over the mesh's devices; `model-flops` cells "
+               "(MoE: `torch.bincount` has no meta")
+    out.append("kernel) take MODEL_FLOPS / 0.45; the stencil (girih) "
+               "cells are the ghost-zone model. The")
+    out.append("terms are priced on the device spec `h100-sxm` "
+               "(data-sheet peaks: bf16 tensor-core FLOP/s,")
+    out.append("HBM bytes/s). The spec has no interconnect, so the "
+               "collective term is 0 in every cell")
+    out.append("until the multi-process route (ROADMAP.md queue 1, item "
+               "11b).")
+    out.append("")
+    out.append("### 16x16 pod (256 devices)")
+    out.append("")
+    out.append(dryrun_table(dr, "16x16"))
+    out.append("")
+    out.append("### 2x16x16 multi-pod (512 devices)")
+    out.append("")
+    out.append(dryrun_table(dr, "2x16x16"))
+    out.append("")
+    out.append("### Roofline (single-pod)")
+    out.append("")
+    out.append(roofline_table(dr))
+    out.append("")
+    return out
+
+
 def render(results_dir: str = RESULTS_DIR) -> str:
     """Render the whole REPRODUCTION.md report from `results_dir`."""
     sweeps = load_sweeps(results_dir)
@@ -585,6 +707,10 @@ def render(results_dir: str = RESULTS_DIR) -> str:
         out.append("")
         out.append(overlap_model_table(scaling_pts))
         out.append("")
+    dryrun_path = os.path.join(results_dir, "dryrun.json")
+    if os.path.exists(dryrun_path):
+        with open(dryrun_path) as f:
+            out += dryrun_section(json.load(f))
     return "\n".join(out).rstrip() + "\n"
 
 

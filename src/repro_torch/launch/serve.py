@@ -1,11 +1,25 @@
-"""Stencil request-queue server on the port's MWD kernel.
+"""Serving launcher: the LM decode loop with a KV/state cache, and the
+stencil request-queue server on the port's MWD kernel.
 
+  python -m repro_torch.launch.serve --arch llama3.2-1b --no-reduced \\
+      --batch 8 --prompt-len 128 --gen 128             # on the card
+  python -m repro_torch.launch.serve --device cpu --arch mamba2-130m
   python -m repro_torch.launch.serve --stencil 7pt-var \\
       --grid "512,512,512;448,480,496" --pad pow2 --requests 4 --steps 8 \\
       --max-batch 2
 
-The port of the stencil half of `repro.launch.serve`: each request asks to
-advance its own grid N time steps. Requests are bucketed by operator
+The port of `repro.launch.serve`. The LM half (no ``--stencil``): the
+one-device mesh of the card ``--device`` names (`elastic.build_mesh`;
+a split over cards waits for ROADMAP.md queue 1, item 11b), the seed-0
+parameters of ``--arch`` (reduced unless ``--no-reduced``) placed with
+`training.sharding.place`, numpy-seeded prompts, `prefill_into_cache`
+(the prompt stepped through the decode path), then a greedy decode loop
+of ``--gen`` tokens that starts from the prompt's last token, as the
+reference's does. No stencil kernel runs on it: the products are
+`torch.matmul`.
+
+The stencil half (``--stencil``): each request asks to advance its own
+grid N time steps. Requests are bucketed by operator
 fingerprint, padding class (the grid's per-axis rung of the ``--pad``
 ladder: ``exact``, ``pow2`` or rungs such as ``8,16,32``), dtype, step
 count and scalar coefficients; when a request reaches the head of the
@@ -21,7 +35,8 @@ latency percentiles.
 Plans resolve registry-first per (class, batch size) under the ``b<B>``
 key (`core.registry`; ``--registry PATH`` names the file, ``--spec`` the
 device spec the model prices against); a ragged batch resolves the masked
-operator's plan. Runs on ``cuda`` unless ``--device cpu`` is given.
+operator's plan. Runs on ``cuda`` unless ``--device cpu`` is given, and
+raises without a GPU rather than falling back.
 """
 
 from __future__ import annotations
@@ -34,13 +49,109 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.core import ir, padding, precision, scheduler
 from repro_torch.core import registry as reg
 from repro_torch.core import specs as devspecs
 from repro_torch.core import stencils as stc
 from repro_torch.device import resolve_device
+from repro_torch.distributed import elastic
 from repro_torch.kernels import ops
 from repro_torch.launch import telemetry as tlm
+from repro_torch.models import lm
+from repro_torch.models.params import tree_init
+from repro_torch.training import sharding as shd
+from repro_torch.training import steps as tsteps
+
+
+def prefill_into_cache(cfg, params, tokens, gen: int,
+                       cache_len: int | None = None):
+    """Prefill by stepping the decode path (simple and exact).
+
+    The cache, on the prompt's device, is sized for the WHOLE request:
+    the prompt plus the `gen` tokens the decode loop will append. A
+    caller-provided `cache_len` is guarded against overflow instead of
+    trusted, with the same ``max(gen, 1)`` rule as the default sizing,
+    because decode reads one slot past the prompt even when gen=0.
+    Returns ``(last logits (B, 1, vocab), cache)``.
+    """
+    if gen < 0:
+        raise ValueError(f"gen must be >= 0, got {gen}")
+    b, s = tokens.shape
+    if cache_len is None:
+        cache_len = s + max(gen, 1)     # decode reads one slot past prefill
+    if cache_len < s + max(gen, 1):
+        raise ValueError(f"cache_len={cache_len} cannot hold the "
+                         f"{s}-token prompt plus {max(gen, 1)} decode slots")
+    cache = lm.init_cache(cfg, b, cache_len, device=tokens.device)
+    serve = tsteps.make_serve_step(cfg)
+    logits = None
+    for i in range(s):
+        _, logits, cache = serve(params, cache, tokens[:, i:i + 1])
+    return logits, cache
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_lm(cfg, batch: int, prompt_len: int, gen: int,
+             device=None) -> dict:
+    """The LM decode loop: seed-0 parameters placed on the one-device
+    mesh of `device`, numpy-seeded prompts (``default_rng(0)``),
+    `prefill_into_cache`, then `gen` greedy steps from the prompt's last
+    token. Prints the reference's two lines. Returns ``prefill_ms``,
+    ``decode_ms`` (one host-clock time a step, each ending in a
+    synchronize), ``decode_ms_per_token`` (their median),
+    ``tokens_per_s`` (batch x gen over the loop's time), ``ids`` (the
+    generated ``(batch, gen)`` int32 ids on the host), and the state the
+    loop left: ``cfg``, ``params``, ``cache`` and ``next`` (the last
+    step's tokens, what a further step would take)."""
+    if not cfg.supports_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode")
+    dev = resolve_device(device)
+    # the one card `device` names: a split over cards waits for item 11b
+    mesh = elastic.build_mesh(devices=[dev])
+    specs = lm.param_specs(cfg)
+    params = shd.place(tree_init(specs, seed=0, device="cpu"),
+                       shd.param_shardings(mesh, specs))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(
+            np.int32)).to(dev)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    _, cache = prefill_into_cache(cfg, params, prompts, gen)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    serve = tsteps.make_serve_step(cfg)
+    toks = prompts[:, -1:]
+    out, step_s = [], []
+    for _ in range(gen):
+        t0 = time.perf_counter()
+        toks, _, cache = serve(params, cache, toks)
+        _sync(dev)
+        step_s.append(time.perf_counter() - t0)
+        out.append(toks)
+    ids = (torch.cat(out, dim=1).cpu() if out
+           else torch.zeros((batch, 0), dtype=torch.int32))
+    t_gen = sum(step_s)
+    tput = batch * gen / t_gen if t_gen else 0.0
+    print(f"prefill {batch}x{prompt_len} in {t_prefill*1e3:.0f}ms; "
+          f"generated {gen} tokens/seq at {tput:.1f} tok/s "
+          f"(batch={batch})")
+    print("sample token ids:", ids[0][:16].tolist())
+    return {"arch": cfg.name, "device": str(dev), "mesh": mesh.shape,
+            "batch": batch, "prompt_len": prompt_len, "gen": gen,
+            "prefill_ms": t_prefill * 1e3,
+            "decode_ms": [t * 1e3 for t in step_s],
+            "decode_ms_per_token": (float(np.median(step_s)) * 1e3
+                                    if step_s else 0.0),
+            "tokens_per_s": tput, "ids": ids, "cfg": cfg, "params": params,
+            "cache": cache, "next": toks}
 
 
 @dataclasses.dataclass(eq=False)        # identity equality: fields hold tensors
@@ -399,11 +510,13 @@ def serve_stencil(name: str, grid, n_steps: int, n_requests: int, *,
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """CLI of the stencil server (split out so tests can parse args)."""
+    """CLI of the serving launcher (split out so tests can parse args)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--stencil", required=True,
-                    help="a paper op, a registered custom op, or "
-                         "module.path:ATTR")
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    choices=list(configs.ARCH_IDS))
+    ap.add_argument("--stencil", default=None,
+                    help="serve stencil advances instead of an LM: a paper "
+                         "op, a registered custom op, or module.path:ATTR")
     ap.add_argument("--op-module", default=None,
                     help="import this module first (it registers custom "
                          "StencilOps via repro_torch.core.ir.register)")
@@ -431,6 +544,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="SLO deadline for interactive-lane requests")
     ap.add_argument("--max-queue-depth", type=int, default=None,
                     help="admission bound per lane")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="LM: the smoke-scale config (--no-reduced: the "
+                         "published width and depth)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--registry", default=None,
@@ -444,19 +564,27 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
-    """CLI entry point: the stencil request-queue server."""
+def main(argv=None) -> dict:
+    """CLI entry point: the stencil request-queue server (``--stencil``)
+    or the LM decode loop; returns `serve_stencil`'s or `serve_lm`'s
+    record."""
     args = build_parser().parse_args(argv)
     if args.spec:
         devspecs.set_default_spec(args.spec)
     if args.op_module:
         import importlib
         importlib.import_module(args.op_module)
+    if not args.stencil:
+        cfg = configs.get(args.arch)
+        if args.reduced:
+            cfg = configs.reduced(cfg)
+        return serve_lm(cfg, args.batch, args.prompt_len, args.gen,
+                        device=args.device)
     grid = ([tuple(int(x) for x in g.split(","))
              for g in args.grid.split(";")] if args.grid else None)
     if grid and len(grid) == 1:
         grid = grid[0]
-    serve_stencil(args.stencil, grid, args.steps, args.requests,
+    return serve_stencil(args.stencil, grid, args.steps, args.requests,
                   max_batch=args.max_batch,
                   batch_window_ms=args.batch_window_ms,
                   arrival_ms=args.arrival_ms, pad=args.pad,

@@ -1,13 +1,14 @@
 """Training launcher for the LM substrate.
 
 The port of `repro.launch.train`: builds the mesh (`elastic.build_mesh`
-over the healthy devices), places the train state on the device, restores
-the newest checkpoint if present, and runs the step loop with async
-checkpointing and deadline-based straggler accounting. One process drives
-one device: the state and every step live on ``--device``, and the mesh is
-only built and reported. Nothing reads it until the LM sharding rules
-(the port of ``training/sharding.py``, not written yet) place the state
-over it.
+over the one card ``--device`` names), places the parameters on it with the LM
+sharding rules (`training.sharding.place` of `param_shardings`), restores
+the newest checkpoint if present onto the same placement
+(`steps.train_state_specs`' shardings), and runs the step loop with async
+checkpointing and deadline-based straggler accounting. The mesh is 1x1,
+so every leaf is stored whole on that card, also on a host with several:
+a split over distinct devices waits for the multi-process route
+(ROADMAP.md queue 1, item 11b).
 
 With --reduced (the default) it trains the smoke-scale config of any
 architecture; --full trains the published width and depth.
@@ -33,9 +34,10 @@ from repro_torch import configs
 from repro_torch.data.pipeline import PipelineConfig, SyntheticPipeline
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint, elastic
-from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import lm
 from repro_torch.models.params import tree_abstract, tree_init
+from repro_torch.optim.optimizers import tree_paths
+from repro_torch.training import sharding as shd
 from repro_torch.training import steps as tsteps
 
 
@@ -82,15 +84,18 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def restore_state(directory: str, cfg, opt, dev) -> tuple[int, dict]:
-    """The newest checkpoint in `directory` as a train state on `dev`
-    (the step counter on the host, as a fresh state keeps it)."""
+def restore_state(directory: str, cfg, opt, mesh) -> tuple[int, dict]:
+    """The newest checkpoint in `directory` as a train state placed on
+    `mesh` by ``train_state_specs(cfg)[1](mesh)`` (the step counter on the
+    host, as a fresh state keeps it)."""
     params = tree_abstract(lm.param_specs(cfg))
     like = {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32)}
+    shardings = dict(tree_paths(tsteps.train_state_specs(cfg)[1](mesh)))
     return checkpoint.restore(
         directory, like,
-        placement_fn=lambda name, leaf: "cpu" if name == "['step']" else dev)
+        placement_fn=lambda name, leaf: "cpu" if name == "['step']"
+        else shd.device_for(shardings[name]))
 
 
 def build(args) -> tuple:
@@ -118,16 +123,18 @@ def main(argv=None, records: list | None = None):
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
     cfg, opt, train_step, pipe = build(args)
-    mesh = elastic.build_mesh(devices=launch_mesh.local_devices(dev))
-    print(f"mesh: {mesh.shape} over {mesh.devices.size} devices; "
-          f"state on {dev}")
+    # the one card `--device` names: a split over cards waits for item 11b
+    mesh = elastic.build_mesh(devices=[dev])
+    print(f"mesh: {mesh.shape} over {mesh.devices.size} devices")
+    spec_tree = lm.param_specs(cfg)
 
     start_step = 0
     if args.ckpt and checkpoint.latest_step(args.ckpt) is not None:
-        start_step, state = restore_state(args.ckpt, cfg, opt, dev)
+        start_step, state = restore_state(args.ckpt, cfg, opt, mesh)
         print(f"resumed from step {start_step}")
     else:
-        params = tree_init(lm.param_specs(cfg), seed=args.seed, device=dev)
+        params = shd.place(tree_init(spec_tree, seed=args.seed, device="cpu"),
+                           shd.param_shardings(mesh, spec_tree))
         state = {"params": params, "opt": opt.init(params),
                  "step": torch.zeros((), dtype=torch.int32)}
 

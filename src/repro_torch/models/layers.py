@@ -83,9 +83,8 @@ def rope_angles(positions, head_dim: int, theta: float,
     if sections:
         assert sum(sections) == half, (sections, half)
         # frequency i takes its position stream from its (t,h,w) section
-        sec_id = torch.repeat_interleave(
-            torch.arange(len(sections), device=dev),
-            torch.tensor(sections, device=dev))
+        sec_id = torch.tensor([i for i, n in enumerate(sections)
+                               for _ in range(n)], device=dev)
         pos = positions.float()[sec_id]                  # (half,B,S)
         ang = torch.movedim(pos, 0, -1) * freqs          # (B,S,half)
     else:

@@ -16,8 +16,6 @@ reference scans.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -28,7 +26,7 @@ from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.common import BATCH as BATCH_AXES
 from repro_torch.models.common import constrain as _constrain
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, TensorSpec
 from repro_torch.optim.optimizers import tree_map
 
 F32 = torch.float32
@@ -191,14 +189,6 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *,
 # ---------------------------------------------------------------------------
 # Decode (serve_step)
 # ---------------------------------------------------------------------------
-
-@dataclasses.dataclass(frozen=True)
-class TensorSpec:
-    """Shape and dtype of one cache tensor (no allocation)."""
-
-    shape: tuple[int, ...]
-    dtype: torch.dtype
-
 
 def _layer_cache_spec(cfg: ArchConfig, i: int, batch: int,
                       seq_len: int) -> dict:

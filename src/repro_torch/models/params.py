@@ -2,7 +2,9 @@
 
 The port of `repro.models.params`. Every parameter is declared once as a
 `ParamSpec` (shape, dtype, logical axes); the same tree drives real
-initialization (`tree_init`) and the parameter count. A parameter tree is
+initialization (`tree_init`), `TensorSpec` trees for the dry-run
+(`tree_sds`: shapes and dtypes, no storage), the logical-to-mesh sharding
+rules (`training.sharding`) and the parameter count. A parameter tree is
 a tree of dicts and lists whose leaves are tensors, in the reference's
 layout (``wq`` is ``(d, heads, head_dim)`` and so on), so weights cross
 between the packages without transposes (`from_reference`).
@@ -33,6 +35,23 @@ class ParamSpec:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def sds(self) -> "TensorSpec":
+        return TensorSpec(self.shape, self.torch_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of one tensor, with no storage: the port's
+    ``jax.ShapeDtypeStruct``."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape)) * self.dtype.itemsize
 
 
 def is_spec(x) -> bool:
@@ -93,6 +112,12 @@ def tree_init(spec_tree, seed: int = 0, device=None):
                           range(len(specs)))
         return _sorted_build(spec_tree, lambda s: torch.from_numpy(
             next(arrays)).to(device=device, dtype=s.torch_dtype))
+
+
+def tree_sds(spec_tree):
+    """The `TensorSpec` of every leaf, dicts with their keys sorted as
+    `tree_init`'s."""
+    return _sorted_build(spec_tree, lambda s: s.sds)
 
 
 def tree_abstract(spec_tree):

@@ -55,6 +55,19 @@ def tree_leaves(tree, is_leaf=None) -> list:
     return [tree]
 
 
+def tree_paths(tree, prefix: str = "") -> list[tuple[str, object]]:
+    """``(keystr, leaf)`` pairs in the reference's flattening order: names
+    as ``jax.tree_util.keystr`` writes them (``"['blocks'][0]['wq']"``),
+    dict keys sorted, lists and tuples in order."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in tree_paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, v in enumerate(tree)
+                for pair in tree_paths(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
 def tree_unflatten(tree, leaves):
     """A tree of `tree`'s structure holding `leaves` in `tree_leaves`'
     order."""

@@ -1,0 +1,238 @@
+"""Logical-axis -> mesh-axis sharding rules (MaxText-style).
+
+The port of `repro.training.sharding`. Rules:
+  embed (d_model)        -> 'data'   (FSDP/ZeRO: params+opt reduce over data)
+  vocab / heads / kv_heads / mlp / experts / ssm_inner -> 'model' (TP/EP)
+  batch                  -> ('pod','data')
+  decode KV cache        -> batch axes; long-context (B==1) -> sequence over
+                            'data' (sequence parallelism / flash-decoding)
+A dimension falls back to replication when not divisible by its mesh axis
+(gemma3's 4 heads on a 16-way model axis).
+
+A partition spec is a plain tuple, one entry a dimension: a mesh-axis
+name, a tuple of names, or None (``PartitionSpec('data', None)`` is
+``('data', None)``, ``PartitionSpec()`` is ``()``). A `NamedSharding` pairs
+it with a `launch.mesh.Mesh`. `local_shape` gives the block one device
+holds, and `place` is the port's ``device_put``: it stores each leaf on its
+mesh device, whole where every device of the mesh is one device (the one
+card, or ``[cpu] * k`` in tests), and refuses a real split over distinct
+devices, which needs the multi-process route (ROADMAP.md queue 1, item
+11b).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.launch.mesh import Mesh, batch_axes
+from repro_torch.models.params import ParamSpec
+from repro_torch.optim.optimizers import tree_map, tree_paths
+
+LOGICAL_RULES: dict[str | None, str | None] = {
+    "embed": "data",
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "experts": "model",
+    "ssm_inner": "model",
+    None: None,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A partition spec (a tuple, one entry a dimension) on a mesh."""
+
+    mesh: Mesh
+    spec: tuple = ()
+
+
+def _axis_size(mesh: Mesh, name: str) -> int:
+    return mesh.shape[name]
+
+
+def _mesh_prod(mesh: Mesh, axes) -> int:
+    return math.prod(_axis_size(mesh, a) for a in axes)
+
+
+def _names(entry) -> tuple[str, ...]:
+    """The mesh axes one spec entry names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _entry(axes: tuple[str, ...]):
+    """One spec entry over `axes`, as ``PartitionSpec`` normalizes it: a
+    lone axis by its name, none as None."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def spec_pspec(mesh: Mesh, spec: ParamSpec) -> tuple:
+    out: list = []
+    used: set[str] = set()   # a mesh axis may shard at most one dim;
+    for dim, logical in zip(spec.shape, spec.axes):  # first dim wins (EP
+        mesh_ax = LOGICAL_RULES.get(logical)         # beats TP on experts)
+        if mesh_ax is not None and mesh_ax in mesh.axis_names \
+                and mesh_ax not in used \
+                and dim % _axis_size(mesh, mesh_ax) == 0:
+            out.append(mesh_ax)
+            used.add(mesh_ax)
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def param_shardings(mesh: Mesh, spec_tree):
+    return tree_map(lambda s: NamedSharding(mesh, spec_pspec(mesh, s)),
+                    spec_tree)
+
+
+def constrain_like_params(tree, spec_tree):
+    """`tree` unchanged: one process holds each gradient whole on its
+    device, so there is no layout to constrain (`models.common.constrain`
+    likewise)."""
+    return tree
+
+
+def data_pspec(mesh: Mesh, ndim: int, *, batch_dim: int = 0) -> tuple:
+    parts: list = [None] * ndim
+    parts[batch_dim] = _entry(batch_axes(mesh))
+    return tuple(parts)
+
+
+def data_sharding(mesh: Mesh, ndim: int, *, batch_dim: int = 0):
+    return NamedSharding(mesh, data_pspec(mesh, ndim, batch_dim=batch_dim))
+
+
+def _rebuild(tree, fn, prefix: str = ""):
+    """`tree` with each leaf replaced by ``fn(keystr, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, fn, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, fn, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def cache_shardings(mesh: Mesh, cfg, cache_tree, *, seq_shard: bool):
+    """Decode-cache shardings. seq_shard=True (long-context, batch==1):
+    shard the KV sequence dim over 'data' (sequence parallelism); otherwise
+    shard batch. kv heads / ssm heads go to 'model' when divisible."""
+    bax = batch_axes(mesh)
+    bent = _entry(bax)
+
+    def one(name, sds):
+        # rightmost-anchored so stacked layouts (+leading n_rep dim) work
+        shape = tuple(sds.shape)
+        n = len(shape)
+        if "'length'" in name or n < 3:
+            return NamedSharding(mesh, ())
+        parts: list = [None] * n
+        if "'k'" in name or "'v'" in name:
+            # (..., B, cap, hkv, hd)
+            if seq_shard and "data" in mesh.axis_names \
+                    and shape[-3] % _axis_size(mesh, "data") == 0:
+                parts[-3] = "data"
+            elif bax and shape[-4] % _mesh_prod(mesh, bax) == 0:
+                parts[-4] = bent
+            if shape[-2] % _axis_size(mesh, "model") == 0:
+                parts[-2] = "model"
+        elif "'ssm'" in name:
+            # (..., B, H, N, P)
+            if bax and shape[-4] % _mesh_prod(mesh, bax) == 0:
+                parts[-4] = bent
+            if shape[-3] % _axis_size(mesh, "model") == 0:
+                parts[-3] = "model"
+        elif "'conv'" in name:
+            # (..., B, K-1, conv_dim)
+            if bax and shape[-3] % _mesh_prod(mesh, bax) == 0:
+                parts[-3] = bent
+            if shape[-1] % _axis_size(mesh, "model") == 0:
+                parts[-1] = "model"
+        return NamedSharding(mesh, tuple(parts))
+
+    return _rebuild(cache_tree, one)
+
+
+def opt_state_shardings(mesh: Mesh, spec_tree, opt_state_shapes):
+    """Optimizer state inherits the param sharding where shapes match;
+    factored Adafactor rows/cols inherit the matching prefix; scalars
+    replicate. Parameter names are tried in the reference's (sorted)
+    order, the first that matches wins."""
+    param_shards = {name: (s.shape, spec_pspec(mesh, s))
+                    for name, s in tree_paths(spec_tree)}
+
+    def one(name, sds):
+        shape = tuple(sds.shape)
+        for pname, (pshape, pspec) in param_shards.items():
+            if pname in name:
+                if shape == pshape:
+                    return NamedSharding(mesh, pspec)
+                if shape == pshape[:-1]:   # adafactor row stats
+                    return NamedSharding(mesh, pspec[:-1])
+                if len(pshape) >= 2 and shape == pshape[:-2] + pshape[-1:]:
+                    return NamedSharding(mesh, pspec[:-2] + pspec[-1:])
+        return NamedSharding(mesh, ())
+
+    return _rebuild(opt_state_shapes, one)
+
+
+def local_shape(shape, spec: tuple, mesh: Mesh) -> tuple[int, ...]:
+    """The block of a `shape` leaf that one device of `mesh` holds under
+    `spec` (a dimension split n ways holds ceil(dim / n))."""
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        n = _mesh_prod(mesh, _names(entry))
+        out[i] = -(-out[i] // n)
+    return tuple(out)
+
+
+def local_bytes(tree, shardings) -> int:
+    """Bytes one device holds of a tree of tensors or `TensorSpec`s under
+    the matching tree of `NamedSharding`s."""
+    pairs = dict(tree_paths(shardings))
+    total = 0
+    for name, leaf in tree_paths(tree):
+        sh = pairs[name]
+        total += (math.prod(local_shape(leaf.shape, sh.spec, sh.mesh))
+                  * leaf.dtype.itemsize)
+    return total
+
+
+def device_for(sh: NamedSharding) -> torch.device:
+    """The device `place` stores a leaf of sharding `sh` on: the mesh's
+    one device where it repeats one, else its first device for a leaf no
+    axis of size above 1 splits (the single-controller step reads it
+    there). A real split over distinct devices raises
+    `NotImplementedError`: it is never replaced by a silent replica."""
+    devices = set(sh.mesh.devices.flat)
+    if len(devices) == 1:
+        return next(iter(devices))
+    split = [a for entry in sh.spec for a in _names(entry)
+             if _axis_size(sh.mesh, a) > 1]
+    if split:
+        raise NotImplementedError(
+            f"a leaf split over mesh axes {split} of distinct devices "
+            f"{sorted(map(str, devices))}: one process holds each leaf "
+            "whole on one device; a real split needs the multi-process "
+            "route (ROADMAP.md queue 1, item 11b)")
+    return sh.mesh.devices.flat[0]
+
+
+def place(tree, shardings):
+    """The port's ``jax.device_put(tree, shardings)``: each tensor of
+    `tree` whole on `device_for` its `NamedSharding` (a same-structured
+    tree)."""
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(v, s) for v, s in zip(tree, shardings))
+    return tree.to(device_for(shardings))

@@ -1,7 +1,7 @@
-"""The LM train, serve and prefill steps, and the generic fit step.
+"""The LM train, serve and prefill steps, the generic fit step, and the
+dry-run's abstract inputs.
 
-The port of `repro.training.steps` (`train_state_specs` and `input_specs`,
-which feed the dry-run, are not ported yet). Every step runs eagerly on the
+The port of `repro.training.steps`. Every step runs eagerly on the
 device its tensors are on. Gradients come from `torch.autograd.grad` on
 leaf copies of the parameters; updates run without autograd. The train
 state is the reference's ``{"params", "opt", "step"}``, which
@@ -12,15 +12,18 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.models import lm
+from repro_torch.models.params import TensorSpec, tree_abstract, tree_sds
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.optimizers import (apply_updates, clip_by_global_norm,
                                           tree_leaves, tree_map,
                                           tree_unflatten)
+from repro_torch.training import sharding as shd
 
 __all__ = ["make_train_step", "make_fit_step", "make_serve_step",
-           "make_prefill_step", "make_optimizer"]
+           "make_prefill_step", "make_optimizer", "train_state_specs",
+           "abstract_inputs", "input_specs"]
 
 
 def _microbatch(batch: dict, i: int, k: int, b: int) -> dict:
@@ -116,8 +119,10 @@ def make_fit_step(opt, loss_fn, *, clip: float = 1.0):
 
 def make_serve_step(cfg: ArchConfig):
     """``serve_step(params, cache, tokens) -> (next_tokens (B,1) int32,
-    logits, new_cache)``: one greedy decode step, without autograd."""
-    @torch.no_grad()
+    logits, new_cache)``: one greedy decode step under
+    ``torch.inference_mode`` (no autograd, no version counters: less host
+    time an operator, and a decode step is host-bound)."""
+    @torch.inference_mode()
     def serve_step(params, cache, tokens):
         logits, new_cache = lm.decode_step(cfg, params, cache, tokens)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
@@ -134,3 +139,86 @@ def make_prefill_step(cfg: ArchConfig, *, chunk: int = 2048):
         return logits
 
     return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs for the dry-run
+# ---------------------------------------------------------------------------
+
+def train_state_specs(cfg: ArchConfig, *, stacked: bool = False):
+    """(state_sds, state_shardings_fn(mesh)) for the full train state; the
+    optimizer state's shapes come from its ``init`` on meta tensors."""
+    pspecs = lm.param_specs(cfg, stacked=stacked)
+    params_sds = tree_sds(pspecs)
+    opt = make_optimizer(cfg.optimizer)
+    opt_sds = tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype),
+                       opt.init(tree_abstract(pspecs)))
+    state_sds = {"params": params_sds, "opt": opt_sds,
+                 "step": TensorSpec((), torch.int32)}
+
+    def shardings(mesh):
+        return {
+            "params": shd.param_shardings(mesh, pspecs),
+            "opt": shd.opt_state_shardings(mesh, pspecs, opt_sds),
+            "step": shd.NamedSharding(mesh, ()),
+        }
+
+    return state_sds, shardings
+
+
+def abstract_inputs(cfg: ArchConfig, kind: str, b: int, seq: int, *,
+                    stacked: bool = False) -> dict:
+    """`TensorSpec` inputs of a `kind` ("train", "prefill" or "decode")
+    step at batch `b` and sequence (decode: cache) length `seq`.
+
+    train:   {"batch": {tokens|embeds [, positions], labels}}
+    prefill: {"batch": {tokens|embeds [, positions]}}
+    decode:  {"cache": ..., "tokens": (B,1)}
+    """
+    i32 = torch.int32
+
+    def batch_specs(with_labels: bool):
+        d: dict = {}
+        if cfg.frontend == "none":
+            d["tokens"] = TensorSpec((b, seq), i32)
+        else:
+            d["embeds"] = TensorSpec((b, seq, cfg.d_model),
+                                     getattr(torch, cfg.dtype))
+        if cfg.mrope_sections:
+            d["positions"] = TensorSpec((3, b, seq), i32)
+        if with_labels:
+            d["labels"] = TensorSpec((b, seq), i32)
+        return d
+
+    if kind == "train":
+        return {"batch": batch_specs(with_labels=True)}
+    if kind == "prefill":
+        return {"batch": batch_specs(with_labels=False)}
+    # decode: one new token against a seq_len cache
+    return {"cache": lm.cache_spec(cfg, b, seq, stacked=stacked),
+            "tokens": TensorSpec((b, 1), i32)}
+
+
+def input_specs(cfg: ArchConfig, shape_name: str, *, stacked: bool = False):
+    """(inputs_sds, shardings_fn(mesh)) for one (arch x shape) cell; the
+    inputs are `abstract_inputs` at the shape's batch and length."""
+    s = SHAPES[shape_name]
+    b, seq, kind = s["global_batch"], s["seq_len"], s["kind"]
+    inputs = abstract_inputs(cfg, kind, b, seq, stacked=stacked)
+
+    def shardings(mesh):
+        if kind in ("train", "prefill"):
+            bs: dict = {}
+            for k, v in inputs["batch"].items():
+                bdim = 1 if k == "positions" else 0
+                bs[k] = shd.data_sharding(mesh, len(v.shape), batch_dim=bdim)
+            return {"batch": bs}
+        seq_shard = b == 1  # long-context: shard KV sequence over 'data'
+        return {
+            "cache": shd.cache_shardings(mesh, cfg, inputs["cache"],
+                                         seq_shard=seq_shard),
+            "tokens": shd.data_sharding(mesh, 2) if b > 1
+            else shd.NamedSharding(mesh, ()),
+        }
+
+    return inputs, shardings

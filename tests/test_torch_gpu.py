@@ -861,3 +861,68 @@ def test_lm_decode_matches_forward_on_the_card(cuda, arch):
             got.append(lg)
     got = torch.cat(got, dim=1)
     assert torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (chip_smoke.py phase 11 at reduced size)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-1b", "mamba2-130m"])
+def test_lm_serve_ids_repeat_on_the_card(cuda, arch):
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--batch", "4", "--prompt-len", "24",
+            "--gen", "8"]
+    first, second = serve.main(argv), serve.main(argv)
+    ids, vocab = first["ids"], first["cfg"].vocab_size
+    assert tuple(ids.shape) == (4, 8)
+    assert int(ids.min()) >= 0 and int(ids.max()) < vocab
+    assert torch.equal(second["ids"], ids)
+    assert first["params"]["embed"].device.type == "cuda"
+    assert first["tokens_per_s"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-1b", "mamba2-130m"])
+def test_lm_prefill_matches_forward_on_the_card(cuda, arch):
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg(arch)
+    params = tree_init(lm.param_specs(cfg), seed=5, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 32),
+                         generator=torch.Generator().manual_seed(5),
+                         dtype=torch.int32).to(cuda)
+    with torch.no_grad():
+        want, _ = lm.forward(cfg, params, {"tokens": toks})
+        got, _ = serve.prefill_into_cache(cfg, params, toks, 1)
+    want = want[:, -1:]
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-130m"])
+def test_lm_place_allocates_the_local_bytes_on_the_card(cuda, arch):
+    from repro_torch import configs as tc
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_sds
+    from repro_torch.optim.optimizers import tree_map, tree_paths
+    from repro_torch.training import sharding as shd
+    dev = torch.device("cuda", 0)
+    specs = lm.param_specs(tc.reduced(tc.get(arch)))
+    mesh = make_debug_mesh((1, 1), devices=[dev])
+    shards = shd.param_shardings(mesh, specs)
+    sds = tree_sds(specs)
+    want = shd.local_bytes(sds, shards)
+    host = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype), sds)
+
+    def requested():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+
+    before = requested()
+    placed = shd.place(host, shards)
+    assert requested() - before == want
+    assert all(t.device == dev for _, t in tree_paths(placed))

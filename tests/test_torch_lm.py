@@ -28,13 +28,12 @@ from repro.models import params as rparams
 from repro_torch import configs as tc
 from repro_torch.configs import base as tbase
 from repro_torch.data import pipeline as tpipe
-from repro_torch.distributed.checkpoint import _tree_paths
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as tlm
 from repro_torch.models import mamba as TM
 from repro_torch.models import moe as TMOE
 from repro_torch.models import params as tparams
-from repro_torch.optim.optimizers import tree_leaves
+from repro_torch.optim.optimizers import tree_leaves, tree_paths
 
 ARCHS = list(rc.ARCH_IDS)
 
@@ -161,7 +160,7 @@ def test_tree_init_is_the_references_bitwise(arch, stacked):
     w_leaves = jax.tree_util.tree_leaves(want)
     g_leaves = tree_leaves(got)
     assert len(g_leaves) == len(w_leaves)
-    assert [n for n, _ in _tree_paths(got)] == w_paths
+    assert [n for n, _ in tree_paths(got)] == w_paths
     for g, w in zip(g_leaves, w_leaves):
         assert g.dtype == getattr(torch, str(w.dtype))
         assert tuple(g.shape) == w.shape

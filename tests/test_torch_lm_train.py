@@ -28,6 +28,7 @@ from repro.training import steps as rsteps
 from repro_torch import configs as tc
 from repro_torch.distributed import checkpoint
 from repro_torch.launch import train as ttrain
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import params as tparams
 from repro_torch.optim import optimizers as topt
 from repro_torch.training import steps as tsteps
@@ -327,9 +328,10 @@ def test_launcher_restores_a_reference_train_state(arch, tmp_path):
     g = jax.tree_util.tree_map(lambda x: jnp.ones_like(x) * 0.01, p)
     _, state["opt"] = opt_r.update(g, state["opt"], p, 0)
     rckpt.save(str(tmp_path), 7, state)
+    mesh = make_debug_mesh((1, 1), devices=["cpu"])
     step, got = ttrain.restore_state(str(tmp_path), cfg_t,
                                      topt.make_optimizer(cfg_t.optimizer),
-                                     torch.device("cpu"))
+                                     mesh)
     assert step == 7 and int(got["step"]) == 7
     want = jax.tree_util.tree_leaves(state)
     have = tparams.sorted_leaves(got)
