@@ -217,10 +217,36 @@ failure so the script exits non-zero:
    and cache length over the spec's HBM rate) and its share, and one
    more decode step under torch.profiler (idle share, five costliest
    operations). No stencil kernel runs in this phase either.
+12. the distributed stepper across processes: ranks spawned with
+   torch.multiprocessing (spawn) through repro_torch.distributed.process.
+   launch, each on cuda:0 over gloo and a file store, each spawn under a
+   join deadline (a rank that fails, or the deadline, kills the others
+   and the script exits non-zero). 12a: 2 ranks of two mesh columns, a
+   (2, 2) process mesh (z across ranks, y within each), 512^3 x 8 steps,
+   t_block 2, plan="auto" from the run's registry, the four paper ops,
+   synchronous and overlapped bitwise equal to each other and to
+   ops.naive; compress=True at 7pt-var and 25pt-const within 1e-5 of the
+   single-controller compressed run, its error against the reference's
+   budget a reading; 12b: 4 ranks of one column, a 2x2 make_mesh (both
+   axes across ranks, the z-y corners two hops), 256^3 x 4 for 7pt-var
+   and 25pt-const, bitwise against ops.naive; 12c: distributed_vjp at
+   256^3 x 4 across 2 ranks bitwise against the single-controller one,
+   and a checkpoint written at world size 2 resumed at world size 4
+   bitwise against the straight run; 12d: `distributed_mp` lines with the
+   card's name and power limit: the super-step loop's ms per schedule
+   with the gather timed apart, beside phase 8c's single-controller call
+   and single-device ops.mwd; one super-step's exchange split into D2H,
+   the gloo transfer and H2D; each rank's carrier bytes, checked equal to
+   halo_bytes of its shards' cross-rank faces (exact and compressed);
+   rank 0's device idle share in an overlapped call (torch.profiler);
+   peak memory and K1 launches per rank. With two cards or more 12a's
+   checks run again over NCCL, one card per rank; on one card the phase
+   prints that this leg was not run, and why.
 
 Before the last line come one `baseline` JSON line per (op, method) and a
 JSON object with one entry per kernel (K1's launches from phases 4, 4b,
-4c, 7, 8b and 9; K2's and K3's from 5b and 9); the last line is
+4c, 7, 8b, 9 and the ranks of 12; K2's and K3's from 5b and 9); the last
+line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -3074,6 +3100,456 @@ def phase_lm_serve(dev) -> dict:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the distributed stepper across processes
+# ---------------------------------------------------------------------------
+
+MP_GRID_B = (256, 256, 256)
+MP_STEPS_B = 4
+MP_OPS_B = ("7pt-var", "25pt-const")
+MP_CKPT_OP = "7pt-var"
+MP_CKPT_STEPS = (2, 2)
+MP_DEADLINE_S = 420.0         # each spawn's join deadline
+MP_REPS = 3
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def mp_join(rank, world_size, init_method, backend):
+    """Join the group on this rank's card: cuda:0 for every gloo rank,
+    cuda:rank under NCCL (one card per rank)."""
+    import torch
+    from repro_torch.distributed import process
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    process.initialize(backend, rank=rank, world_size=world_size,
+                       init_method=init_method, timeout_s=MP_DEADLINE_S,
+                       device=dev)
+    return dev
+
+
+class uncounted:
+    """A block whose K1 launches leave K1's count as it was: the
+    single-controller runs a rank compares its own with."""
+
+    def __enter__(self):
+        from repro_torch.kernels import stencil_mwd as sm
+        self.count = sm.LAUNCHES.count
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import stencil_mwd as sm
+        sm.LAUNCHES.count = self.count
+
+
+def mp_plan(spec, mesh, grid):
+    """The shard plan run_distributed(plan="auto") resolves: rank 0's,
+    broadcast."""
+    from repro_torch.distributed import process, stepper
+    got = (stepper.resolve_shard_plan(spec, mesh, grid, DIST_TBLOCK)
+           if process.process_index() == 0 else None)
+    return process.broadcast_object(got)
+
+
+def mp_checked_runs(spec, mesh, state, coeffs, grid, steps) -> int:
+    """run_distributed(plan="auto") synchronous and overlapped; rank 0
+    holds both against each other and ops.naive, bitwise. Returns this
+    rank's K1 launches."""
+    import torch
+    from repro_torch.distributed import process, stepper
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_mwd as sm
+    runs, launches = {}, 0
+    for ovl in (False, True):
+        before = sm.LAUNCHES.count
+        runs[ovl] = stepper.run_distributed(spec, mesh, state, coeffs, steps,
+                                            DIST_TBLOCK, plan="auto",
+                                            overlap=ovl)
+        torch.cuda.synchronize()
+        launches += sm.LAUNCHES.count - before
+    if process.process_index() == 0:
+        naive = ops.naive(spec, state, coeffs, steps)
+        check(all(same(a, b) for a, b in zip(runs[False], runs[True])),
+              f"{spec.name} across ranks: overlapped != synchronous at "
+              f"{grid} ({first_difference(runs[True], runs[False])})")
+        check(all(same(a, b) for a, b in zip(runs[False], naive)),
+              f"{spec.name} across ranks: != ops.naive at {grid} "
+              f"({first_difference(runs[False], naive)})")
+    return launches
+
+
+def mp_carrier(spec, mesh, state, grid, compress, timed=False) -> dict:
+    """One super-step's exchange through a Carrier: its bytes, checked
+    equal to `stepper.rank_halo_bytes`, and (timed) its D2H, wire and H2D
+    seconds."""
+    import torch
+    from repro_torch.distributed import halo, process, stepper
+    gs = stepper.GridSharding(mesh)
+    g = spec.radius * DIST_TBLOCK
+    cur = gs.shard(state[0])
+    prev = gs.shard(state[1]) if spec.time_order == 2 else cur
+    err = (stepper.init_halo_error_global(spec, mesh, grid, DIST_TBLOCK)
+           if compress else None)
+    process.barrier()
+    carrier = halo.Carrier(timed=timed)
+    stepper._Exchange(spec, g, cur, prev, err, carrier).land()
+    torch.cuda.synchronize()
+    want = stepper.rank_halo_bytes(spec, mesh, grid, DIST_TBLOCK,
+                                   process.process_index(), compress=compress)
+    check(carrier.sent_bytes == want,
+          f"{spec.name}: rank {process.process_index()}'s carrier sent "
+          f"{carrier.sent_bytes} bytes, halo_bytes says {want}")
+    out = {"bytes": carrier.sent_bytes, "halo_bytes": want}
+    if timed:
+        out.update({k.replace("_s", "_ms"): v * 1e3
+                    for k, v in carrier.times.items()})
+    return out
+
+
+def mp_loop_ms(spec, mesh, state, coeffs, plan, overlap) -> dict:
+    """The super-step loop alone (host clock, synchronized and behind a
+    barrier at both ends, min of MP_REPS) and the gather of its result
+    timed apart."""
+    import torch
+    from repro_torch.distributed import process, stepper
+    gs = stepper.GridSharding(mesh)
+    cur_g = gs.shard(state[0])
+    prev_g = gs.shard(state[1]) if spec.time_order == 2 else cur_g
+    arrays, scalars = stepper.canonical_coeffs(spec, coeffs)
+    hoisted = stepper.make_coeff_extender(spec, DIST_TBLOCK)(
+        (gs.shard(arrays) if arrays is not None else None, scalars))
+    step = stepper.make_super_step(spec, mesh, MAIN_GRID, DIST_TBLOCK,
+                                   plan=plan, overlap=overlap)
+
+    def timed(fn):
+        process.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        process.barrier()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def loop():
+        c, p = cur_g, prev_g
+        for _ in range(MAIN_STEPS // DIST_TBLOCK):
+            c, p = step(c, p, hoisted)
+        return c, p
+
+    best, last = math.inf, None
+    for _ in range(MP_REPS):
+        ms, last = timed(loop)
+        best = min(best, ms)
+    gather_ms, _ = timed(lambda: (gs.gather(last[0]), gs.gather(last[1])))
+    return {"loop_ms": best, "gather_ms": gather_ms}
+
+
+def mp_rank_pair(rank, world_size, init_method, backend, ckpt_dir, full):
+    """12a (and 12c, and the checkpoint at world size 2) on one rank of
+    two, each with two mesh columns: a (2, 2) process mesh, z across
+    ranks. `full` adds the timings, the profiler and 12c (the NCCL leg
+    runs the checks alone). Raises on any failed check."""
+    import torch
+    from repro_torch.core import stencils as st
+    from repro_torch.distributed import checkpoint, process, stepper
+    from repro_torch.kernels import stencil_mwd as sm
+    from repro_torch.launch import mesh as launch_mesh
+    dev = mp_join(rank, world_size, init_method, backend)
+    try:
+        mesh = launch_mesh.make_process_mesh([dev, dev])
+        check(mesh.shape == {"data": 2, "model": 2},
+              f"process mesh {mesh.shape}, want 2 x 2")
+        sm.LAUNCHES.count = 0
+        out = {"ops": {}}
+        for name, spec in st.SPECS.items():
+            torch.cuda.reset_peak_memory_stats()
+            state, coeffs = st.random_problem(spec, MAIN_GRID, seed=0,
+                                              device=dev)
+            row = {"k1_launches": mp_checked_runs(spec, mesh, state, coeffs,
+                                                  MAIN_GRID, MAIN_STEPS)}
+            row["carrier"] = mp_carrier(spec, mesh, state, MAIN_GRID, False,
+                                        timed=True)
+            row["carrier_compressed"] = mp_carrier(spec, mesh, state,
+                                                   MAIN_GRID, True)
+            if full:
+                plan, source = mp_plan(spec, mesh, MAIN_GRID)
+                row["plan"] = (f"dw{plan.d_w}.nf{plan.n_f}."
+                               f"{'fused' if plan.fused else 'row'}")
+                row["plan_source"] = source
+                for ovl in (False, True):
+                    key = "overlap" if ovl else "sync"
+                    row[key] = mp_loop_ms(spec, mesh, state, coeffs, plan,
+                                          ovl)
+                if name in DIST_COMPRESS_OPS:
+                    row["compressed"] = mp_compressed(spec, mesh, state,
+                                                      coeffs, dev)
+                if rank == 0:
+                    row["profiled_overlap"] = device_split(
+                        lambda: stepper.run_distributed(
+                            spec, mesh, state, coeffs, MAIN_STEPS,
+                            DIST_TBLOCK, plan="auto", overlap=True))
+                else:
+                    stepper.run_distributed(spec, mesh, state, coeffs,
+                                            MAIN_STEPS, DIST_TBLOCK,
+                                            plan="auto", overlap=True)
+                torch.cuda.synchronize()
+            row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out["ops"][name] = row
+            del state, coeffs
+            torch.cuda.empty_cache()
+        if full:
+            out["vjp"] = {name: mp_vjp(st.SPECS[name], mesh, dev)
+                          for name in VJP_OPS}
+            spec = st.SPECS[MP_CKPT_OP]
+            state, coeffs = st.random_problem(spec, MP_GRID_B, seed=3,
+                                              device=dev)
+            got = stepper.run_distributed(spec, mesh, state, coeffs,
+                                          MP_CKPT_STEPS[0], DIST_TBLOCK,
+                                          plan="auto")
+            checkpoint.save(ckpt_dir, MP_CKPT_STEPS[0],
+                            {"cur": got[0], "prev": got[1]})
+        out["launches"] = sm.LAUNCHES.count
+        return out
+    finally:
+        process.finalize()
+
+
+def mp_compressed(spec, mesh, state, coeffs, dev) -> dict:
+    """compress=True across ranks: rank 0 holds it within 1e-5 of the
+    single-controller compressed run on the same layout (four shards on
+    the card) and reads it against the reference's budget."""
+    from repro_torch.distributed import process, stepper
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as launch_mesh
+    got = stepper.run_distributed(spec, mesh, state, coeffs, MAIN_STEPS,
+                                  DIST_TBLOCK, plan="auto", compress=True)
+    if process.process_index() != 0:
+        return None
+    with uncounted():
+        single = stepper.run_distributed(
+            spec, launch_mesh.make_debug_mesh((2, 2), devices=[dev] * 4),
+            state, coeffs, MAIN_STEPS, DIST_TBLOCK, plan="auto",
+            compress=True)
+    vs_single = max(max_err(a, b) for a, b in zip(got, single))
+    check(vs_single <= 1e-5, f"{spec.name}: compressed across ranks "
+                             f"{vs_single} from the single-controller run")
+    naive = ops.naive(spec, state, coeffs, MAIN_STEPS)
+    err = max_err(got[0], naive[0])
+    return {"err_vs_naive": err, "budget": COMPRESS_BUDGET,
+            "within_budget": err < COMPRESS_BUDGET,
+            "err_vs_single_controller": vs_single,
+            "bitwise_single_controller": all(
+                same(a, b) for a, b in zip(got, single))}
+
+
+def mp_vjp(spec, mesh, dev) -> dict:
+    """12c: distributed_vjp(plan="auto") at 256^3 x 4 across the ranks,
+    bitwise against the single-controller one on the same layout."""
+    import torch
+    from repro_torch.core import stencils as st
+    from repro_torch.distributed import process
+    from repro_torch.kernels import adjoint
+    from repro_torch.launch import mesh as launch_mesh
+    state, coeffs = st.random_problem(spec, VJP_GRID, seed=4, device=dev)
+    w = torch.randn(VJP_GRID, generator=torch.Generator(dev).manual_seed(6),
+                    device=dev)
+    t0 = time.perf_counter()
+    outs, vjp = adjoint.distributed_vjp(spec, mesh, state, coeffs, VJP_STEPS,
+                                        t_block=DIST_TBLOCK, plan="auto")
+    grads = vjp((w, torch.zeros_like(w)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if process.process_index() != 0:
+        return {"s": seconds}
+    mesh1 = launch_mesh.make_debug_mesh((2, 2), devices=[dev] * 4)
+    with uncounted():
+        outs1, vjp1 = adjoint.distributed_vjp(spec, mesh1, state, coeffs,
+                                              VJP_STEPS, t_block=DIST_TBLOCK,
+                                              plan="auto")
+        want = [outs1[0]] + list(vjp1((w, torch.zeros_like(w))))
+    got = [outs[0]] + list(grads)
+    for i, (a, b) in enumerate(zip(got, want)):
+        check((a is None) == (b is None) and (a is None or same(a, b)),
+              f"{spec.name}: distributed_vjp across ranks, term {i}, != "
+              f"the single-controller one")
+    return {"s": seconds, "bitwise": True}
+
+
+def mp_rank_quad(rank, world_size, init_method, backend, ckpt_dir):
+    """12b and the checkpoint resumed at world size 4 on one rank of
+    four, one mesh column each: a 2x2 make_mesh, both grid axes across
+    ranks, so the z-y corners travel two cross-process hops."""
+    import torch
+    from repro_torch.core import stencils as st
+    from repro_torch.distributed import checkpoint, process, stepper
+    from repro_torch.kernels import stencil_mwd as sm
+    from repro_torch.launch import mesh as launch_mesh
+    dev = mp_join(rank, world_size, init_method, backend)
+    try:
+        mesh = launch_mesh.make_mesh((2, 2), ("data", "model"), [
+            process.ProcessDevice(p, 0, dev) for p in range(4)])
+        sm.LAUNCHES.count = 0
+        out = {"ops": {}}
+        for name in MP_OPS_B:
+            spec = st.SPECS[name]
+            torch.cuda.reset_peak_memory_stats()
+            state, coeffs = st.random_problem(spec, MP_GRID_B, seed=1,
+                                              device=dev)
+            t0 = time.perf_counter()
+            n = mp_checked_runs(spec, mesh, state, coeffs, MP_GRID_B,
+                                MP_STEPS_B)
+            out["ops"][name] = {
+                "k1_launches": n, "checked_s": time.perf_counter() - t0,
+                "carrier": mp_carrier(spec, mesh, state, MP_GRID_B, False,
+                                      timed=True),
+                "carrier_compressed": mp_carrier(spec, mesh, state,
+                                                 MP_GRID_B, True),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        spec = st.SPECS[MP_CKPT_OP]
+        state, coeffs = st.random_problem(spec, MP_GRID_B, seed=3,
+                                          device=dev)
+        step, tree = checkpoint.restore(
+            ckpt_dir, {"cur": state[0], "prev": state[1]})
+        check(step == MP_CKPT_STEPS[0], f"restored step {step}")
+        got = stepper.run_distributed(spec, mesh, (tree["cur"], tree["prev"]),
+                                      coeffs, MP_CKPT_STEPS[1], DIST_TBLOCK,
+                                      plan="auto")
+        torch.cuda.synchronize()
+        out["launches"] = sm.LAUNCHES.count
+        if rank == 0:
+            with uncounted():
+                straight = stepper.run_distributed(
+                    spec,
+                    launch_mesh.make_debug_mesh((2, 2), devices=[dev] * 4),
+                    state, coeffs, sum(MP_CKPT_STEPS), DIST_TBLOCK,
+                    plan="auto")
+            check(all(same(a, b) for a, b in zip(got, straight)),
+                  f"checkpoint at world size 2 resumed at 4 != the straight "
+                  f"run ({first_difference(got, straight)})")
+            out["resumed_bitwise"] = True
+        return out
+    finally:
+        process.finalize()
+
+
+def phase_multiprocess(dist_rows: dict) -> dict:
+    """Phase 12, the distributed stepper across processes: ranks spawned
+    with torch.multiprocessing (spawn) on cuda:0 over gloo and a file
+    store, each spawn under a join deadline (a rank that fails, or the
+    deadline, ends every rank and the phase). 12a: 2 ranks of two mesh
+    columns, a (2, 2) process mesh, 512^3 x 8 per paper op at plan="auto",
+    synchronous and overlapped bitwise to each other and ops.naive,
+    compress=True at 7pt-var and 25pt-const (within 1e-5 of the
+    single-controller compressed run, a reading against the reference's
+    budget); 12b: 4 ranks of one column, a 2x2 make_mesh, 256^3 x 4 for
+    7pt-var and 25pt-const, bitwise against ops.naive; 12c: distributed_vjp
+    at 256^3 x 4 across 2 ranks bitwise against the single-controller
+    one, and a checkpoint written at world size 2 resumed at world size 4
+    bitwise against the straight run; 12d: the `distributed_mp` lines.
+    With two cards or more 12a's checks run again over NCCL, one card per
+    rank. Returns the ranks' K1 launches."""
+    import gc
+
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    log(f"phase 12: parent holds {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB before spawning")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_mp_ckpt_")
+    try:
+        from repro_torch.distributed import process
+        t_a = time.perf_counter()
+        pair = process.launch(mp_rank_pair, 2, ("gloo", ckpt, True),
+                              timeout_s=MP_DEADLINE_S)
+        t_a = time.perf_counter() - t_a
+        t_b = time.perf_counter()
+        quad = process.launch(mp_rank_quad, 4, ("gloo", ckpt),
+                              timeout_s=MP_DEADLINE_S)
+        t_b = time.perf_counter() - t_b
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches = (sum(r["launches"] for r in pair)
+                + sum(r["launches"] for r in quad))
+    for name in pair[0]["ops"]:
+        rows = [r["ops"][name] for r in pair]
+        r0 = rows[0]
+        d8 = dist_rows.get(name, {})
+        line = {
+            "phase": "12a", "op": name, "grid": list(MAIN_GRID),
+            "steps": MAIN_STEPS, "t_block": DIST_TBLOCK, "ranks": 2,
+            "mesh": [2, 2], "backend": "gloo", "card": card,
+            "plan": r0["plan"], "plan_source": r0["plan_source"],
+            "sync_loop_ms": r0["sync"]["loop_ms"],
+            "overlap_loop_ms": r0["overlap"]["loop_ms"],
+            "gather_ms": r0["sync"]["gather_ms"],
+            "single_controller_sync_ms": d8.get("sync_ms"),
+            "single_controller_overlap_ms": d8.get("overlap_ms"),
+            "single_device_mwd_ms": d8.get("single_device_mwd_ms"),
+            "exchange_split_ms_per_rank": [
+                {k: r["carrier"][k] for k in ("d2h_ms", "wire_ms", "h2d_ms")}
+                for r in rows],
+            "carrier_bytes_per_rank": [r["carrier"]["bytes"] for r in rows],
+            "halo_bytes_per_rank": [r["carrier"]["halo_bytes"] for r in rows],
+            "carrier_bytes_compressed_per_rank": [
+                r["carrier_compressed"]["bytes"] for r in rows],
+            "halo_bytes_compressed_per_rank": [
+                r["carrier_compressed"]["halo_bytes"] for r in rows],
+            "profiled_overlap_rank0": r0["profiled_overlap"],
+            "peak_gb_per_rank": [r["peak_gb"] for r in rows],
+            "k1_launches_per_rank": [r["k1_launches"] for r in rows],
+            "compressed": r0.get("compressed"), "bitwise": True}
+        log("distributed_mp " + json.dumps(line))
+    for name in quad[0]["ops"]:
+        rows = [r["ops"][name] for r in quad]
+        line = {
+            "phase": "12b", "op": name, "grid": list(MP_GRID_B),
+            "steps": MP_STEPS_B, "t_block": DIST_TBLOCK, "ranks": 4,
+            "mesh": [2, 2], "backend": "gloo", "card": card,
+            "checked_s": rows[0]["checked_s"],
+            "exchange_split_ms_per_rank": [
+                {k: r["carrier"][k] for k in ("d2h_ms", "wire_ms", "h2d_ms")}
+                for r in rows],
+            "carrier_bytes_per_rank": [r["carrier"]["bytes"] for r in rows],
+            "carrier_bytes_compressed_per_rank": [
+                r["carrier_compressed"]["bytes"] for r in rows],
+            "peak_gb_per_rank": [r["peak_gb"] for r in rows],
+            "k1_launches_per_rank": [r["k1_launches"] for r in rows],
+            "bitwise": True}
+        log("distributed_mp " + json.dumps(line))
+    log("distributed_mp " + json.dumps({
+        "phase": "12c", "card": card, "vjp": pair[0]["vjp"],
+        "vjp_s_per_rank": [{n: r["vjp"][n]["s"] for n in r["vjp"]}
+                           for r in pair],
+        "checkpoint": f"world size 2 -> 4 at {MP_GRID_B}, "
+                      f"{MP_CKPT_STEPS[0]} + {MP_CKPT_STEPS[1]} steps",
+        "resumed_bitwise": quad[0]["resumed_bitwise"],
+        "spawn_s": {"pair": t_a, "quad": t_b}}))
+    if torch.cuda.device_count() >= 2:
+        nccl = process.launch(mp_rank_pair, 2, ("nccl", None, False),
+                              timeout_s=MP_DEADLINE_S)
+        launches += sum(r["launches"] for r in nccl)
+        log("distributed_mp " + json.dumps({
+            "phase": "12a-nccl", "card": card, "bitwise": True,
+            "carrier_bytes_per_rank": [
+                {n: r["ops"][n]["carrier"]["bytes"] for n in r["ops"]}
+                for r in nccl]}))
+    else:
+        log("12 nccl leg: not run: torch.cuda.device_count() is "
+            f"{torch.cuda.device_count()}, and NCCL needs one card per rank "
+            "(two ranks on one card raise repro_torch's own error)")
+    log(f"phase 12 multiprocess: {time.perf_counter() - t0:.1f} s "
+        f"(K1 launches across ranks {launches})")
+    return {"launches": launches}
+
+
 def time_kernels() -> None:
     """K1, K2 and K3 per paper op at 512^3 x 8, as one JSON line.
 
@@ -3430,6 +3906,7 @@ def main() -> int:
         benches = phase_benches(dev)
         phase_lm(dev)
         phase_lm_serve(dev)
+        multi = phase_multiprocess(dist)
     finally:
         shutil.rmtree(plans, ignore_errors=True)
     k = rows[SERVE_OP]
@@ -3439,7 +3916,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/stencil_mwd.py:69",
         "launches": (served["k1_launches"] + ragged["k1_launches"]
                      + soaked["k1_launches"] + diff["launches"]
-                     + dist["launches"] + benches["launches"]["mwd"]),
+                     + dist["launches"] + benches["launches"]["mwd"]
+                     + multi["launches"]),
         "max_abs_err": tally.max_abs_err["mwd"],
         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

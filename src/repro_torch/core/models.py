@@ -9,7 +9,9 @@ terms do not apply:
 * Eq. 4/5  — code balance of the MWD pass, the spatial and ghost-zone
              baselines.
 * ECM      — {T_compute || T_smem || T_hbm} with a launch-latency floor.
-* Roofline — compute / memory / latency terms; no collective term yet.
+* Roofline — compute / memory / collective / latency terms; the
+             collective term prices the bytes a device sends over its
+             NVLink links' one-way rate (the spec's ``ici_*`` fields).
 * K1 model — `k1_predict`: the schedule's bytes over the HBM rate, the
              flops over the f32 peak, the barrier-ended phases each CTA
              passes times the waves of resident clusters at the costs
@@ -290,15 +292,20 @@ def roofline(flops_per_device: float, bytes_per_device: float,
     """The roofline terms for per-device FLOPs and bytes.
 
     Compute is priced at the tensor-core peak, as the reference prices its
-    matrix unit. The spec has no interconnect yet, so the collective term
-    is 0 whatever `coll_bytes_per_device` says. A transfer under the
-    spec's ``latency_bytes`` reports "latency".
+    matrix unit. The collective term is the bytes a device sends over
+    every interconnect link at once, one way: ``coll_bytes_per_device /
+    (ici_bw_per_link * ici_links / 2)``, since the data sheet's per-link
+    rate counts both directions and a device receives as much as it sends
+    (the reference prices one link; NVSwitch gives a card all of its
+    links). A transfer under the spec's ``latency_bytes`` reports
+    "latency".
     """
     chip = chip or devspecs.current_spec()
     return RooflineTerms(
         t_compute=flops_per_device / chip.peak_flops_bf16,
         t_memory=bytes_per_device / chip.hbm_bw,
-        t_collective=0.0,
+        t_collective=coll_bytes_per_device / (
+            chip.ici_bw_per_link * chip.ici_links / 2),
         flops_per_device=flops_per_device,
         bytes_per_device=bytes_per_device,
         coll_bytes_per_device=coll_bytes_per_device,

@@ -15,6 +15,8 @@ model prices its barrier-ended phases at costs fitted to measured K1 times
 (`k1_phase_s`, `k1_cta_phase_s`, `k1_row_load_s`: `models.fit_k1`). The
 energy model's constants (`static_power_w`, `joules_per_flop`,
 `joules_per_hbm_byte`), which no data sheet gives, are measured too. The
+interconnect (`ici_bw_per_link`, `ici_links`: NVLink, the reference's
+field names) prices the dry-run's collective term. The
 file's `source` string names where each figure comes from (a data sheet, or the
 card's name and power limit as ``nvidia-smi`` reports them).
 
@@ -54,6 +56,9 @@ class DeviceSpec:
     peak_flops_bf16: float      # dense tensor-core peak, FLOP/s
     peak_flops_f32: float       # f32 peak outside the tensor cores, FLOP/s
     hbm_bw: float               # device memory B/s
+    ici_bw_per_link: float      # B/s per interconnect (NVLink) link, both
+                                # directions
+    ici_links: int              # interconnect links per card
     smem_bw: float              # shared memory B/s, all SMs together
     l2_bytes: int               # L2 cache
     smem_block_bytes: int       # dynamic shared memory one block may opt into
@@ -94,6 +99,8 @@ _SCHEMA: dict[str, type] = {
     "peak_flops_bf16": float,
     "peak_flops_f32": float,
     "hbm_bw": float,
+    "ici_bw_per_link": float,
+    "ici_links": int,
     "smem_bw": float,
     "l2_bytes": int,
     "smem_block_bytes": int,

@@ -16,6 +16,12 @@ that is `os.replace`d in, so a killed process never leaves a
 half-checkpoint. Checkpoints hold full logical arrays: `restore` places
 each leaf wherever `placement_fn` says, which is what makes an elastic
 rescale (`distributed.elastic`) a restore onto another mesh.
+
+Under a process group (`distributed.process`) the tree is the global one
+every rank holds (`stepper.run_distributed` returns it on every rank):
+rank 0 alone writes it, and every rank waits at a barrier until it is
+committed. `restore` runs on every rank, so a run checkpointed at one
+world size resumes at another.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.distributed import process
 from repro_torch.optim.optimizers import tree_paths
 
 _COMMIT = "COMMIT"
@@ -71,7 +78,19 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def save(directory: str, step: int, tree, *, keep_last: int = 3) -> str:
-    """Synchronous atomic checkpoint of `tree` at `step`."""
+    """Synchronous atomic checkpoint of `tree` at `step` (under a process
+    group: written by rank 0, committed for every rank on return)."""
+    if process.process_count() > 1:
+        final = os.path.join(directory, f"step_{step:010d}")
+        if process.process_index() == 0:
+            _write(directory, step, tree, keep_last)
+        process.barrier()
+        return final
+    return _write(directory, step, tree, keep_last)
+
+
+def _write(directory: str, step: int, tree, keep_last: int) -> str:
+    """Write and commit one checkpoint; its directory."""
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:010d}")
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
@@ -158,7 +177,11 @@ def restore(directory: str, tree_like, *, step: int | None = None,
 
 
 class AsyncCheckpointer:
-    """Background-thread checkpointer with at-most-one pending save."""
+    """Background-thread checkpointer with at-most-one pending save.
+
+    Under a process group rank 0's thread writes, and `wait_pending` is a
+    barrier: every rank calls `save` and `wait_pending` alike.
+    """
 
     def __init__(self, directory: str, keep_last: int = 3):
         self.directory = directory
@@ -167,8 +190,11 @@ class AsyncCheckpointer:
         self._error: BaseException | None = None
 
     def save(self, step: int, tree) -> None:
-        """Snapshot `tree` to host and write the checkpoint off-thread."""
+        """Snapshot `tree` to host and write the checkpoint off-thread
+        (rank 0's thread under a process group)."""
         self.wait_pending()
+        if process.process_index() != 0:
+            return
         # snapshot on the caller's thread: the next step may overwrite the
         # device tensors
         snapshot = _rebuild(tree, {
@@ -178,7 +204,7 @@ class AsyncCheckpointer:
 
         def _run():
             try:
-                save(self.directory, step, snapshot, keep_last=self.keep_last)
+                _write(self.directory, step, snapshot, self.keep_last)
             except BaseException as e:  # surfaced on the next wait
                 self._error = e
 
@@ -186,10 +212,13 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait_pending(self) -> None:
-        """Join the in-flight save (if any) and re-raise its error."""
+        """Join the in-flight save (if any) and re-raise its error; under
+        a process group, wait until rank 0's save is committed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if process.process_count() > 1:
+            process.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

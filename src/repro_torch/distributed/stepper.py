@@ -1,11 +1,21 @@
-"""Distributed MWD time-stepper: the paper's MPI layer on one controller.
+"""Distributed MWD time-stepper: the paper's MPI layer.
 
 The port of `repro.distributed.stepper`. Domain decomposition (paper Sec.
 4.2): z over the data axes ('pod', 'data' flattened), y over 'model', x
-never sharded. One process holds every shard as a tensor on its mesh
-device (`launch.mesh`); `GridSharding.shard` and `gather` take the place
-of the reference's `device_put` with a `NamedSharding`, and a super-step
-loops over the shards where the reference's `shard_map` traces one.
+never sharded. On one controller (a mesh of `torch.device`s, the default)
+one process holds every shard as a tensor on its mesh device
+(`launch.mesh`); `GridSharding.shard` and `gather` take the place of the
+reference's `device_put` with a `NamedSharding`, and a super-step loops
+over the shards where the reference's `shard_map` traces one.
+
+Across processes (a mesh of `ProcessDevice`s under a process group,
+`distributed.process`), the reference's multi-controller `shard_map`:
+every rank walks the same global grid, holds only its own shards (another
+rank's is a `halo.Remote` placeholder), advances only those, and trades
+halo slabs with the other ranks through a `halo.Carrier`. `run_distributed`
+takes the global problem on every rank and returns the global result on
+every rank (`GridSharding.gather` broadcasts each shard from its owner);
+``plan="auto"`` resolves on rank 0 and is broadcast.
 
 Each super-step exchanges deep halos of depth g = R * t_block (one
 neighbour exchange amortized over t_block local steps), then advances
@@ -19,6 +29,8 @@ t_block local steps. Two schedules:
   per sharded axis that complete from the landed halos. On CUDA the halo
   copies run on a communication stream (`halo.Wire`) while the interior
   runs on the compute stream; the boundary launches wait for the copies.
+  Across processes the exchange's first phase is staged before the
+  interior launches and traded after them (`_Exchange.land`).
 
 Two local executors:
 
@@ -40,11 +52,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import ir
 from repro_torch.core import stencils as st
 from repro_torch.core.mwd import MWDPlan
-from repro_torch.distributed import halo
+from repro_torch.distributed import halo, process
+from repro_torch.distributed.process import ProcessDevice
 from repro_torch.kernels import stencil_mwd
 from repro_torch.kernels._host import edge_pad
 from repro_torch.models.params import TensorSpec
@@ -53,9 +67,19 @@ from repro_torch.models.params import TensorSpec
 @dataclasses.dataclass(frozen=True)
 class GridSharding:
     """How the (z, y, x) stencil grid maps onto a mesh: z->data axes,
-    y->model."""
+    y->model. A `ProcessDevice` entry is owned by its process; a
+    `torch.device` by this one."""
 
     mesh: object
+
+    def __post_init__(self):
+        owners = {e.process_index for e in self._process_entries()}
+        if owners and max(owners) >= process.process_count():
+            raise ValueError(
+                f"the mesh spans processes {sorted(owners)} but the "
+                f"process group has {process.process_count()}: start one "
+                f"rank per process (repro_torch.distributed.process."
+                f"initialize)")
 
     @property
     def z_axes(self) -> tuple[str, ...]:
@@ -67,6 +91,17 @@ class GridSharding:
         """Mesh axis the grid's y dimension is sharded over."""
         return "model"
 
+    def _process_entries(self) -> list[ProcessDevice]:
+        # a stand-in mesh of axis names and sizes has no devices
+        devices = getattr(self.mesh, "devices", None)
+        return [e for e in (() if devices is None else devices.flat)
+                if isinstance(e, ProcessDevice)]
+
+    @property
+    def multiprocess(self) -> bool:
+        """True when the mesh's shards live in several processes."""
+        return process.process_count() > 1 and bool(self._process_entries())
+
     def counts(self) -> tuple[int, int]:
         """(n_z, n_y): shard counts along the grid's z and y dimensions."""
         n_z = 1
@@ -74,9 +109,9 @@ class GridSharding:
             n_z *= self.mesh.shape[a]
         return n_z, self.mesh.shape[self.y_axis]
 
-    def devices(self) -> list[list[torch.device]]:
-        """The ``[iz][iy]`` device grid (z index pod-major over the data
-        axes, as the reference's flattened axis index)."""
+    def entries(self) -> list[list]:
+        """The ``[iz][iy]`` grid of mesh entries (z index pod-major over
+        the data axes, as the reference's flattened axis index)."""
         names = self.mesh.axis_names
         order = [names.index(a) for a in self.z_axes + (self.y_axis,)]
         rest = [i for i in range(len(names)) if i not in order]
@@ -87,34 +122,109 @@ class GridSharding:
         grid = self.mesh.devices.transpose(order + rest).reshape(n_z, n_y)
         return [list(row) for row in grid]
 
+    def devices(self) -> list[list[torch.device]]:
+        """The ``[iz][iy]`` device grid (each entry's device in its own
+        process)."""
+        return [[e.device if isinstance(e, ProcessDevice) else e
+                 for e in row] for row in self.entries()]
+
+    def owners(self) -> list[list[int]]:
+        """The ``[iz][iy]`` grid of owning ranks."""
+        me = process.process_index()
+        return [[e.process_index if isinstance(e, ProcessDevice) else me
+                 for e in row] for row in self.entries()]
+
     def cells(self):
         """Every ``(iz, iy)`` shard index, z-major."""
         n_z, n_y = self.counts()
         return [(iz, iy) for iz in range(n_z) for iy in range(n_y)]
 
-    def shard(self, x: torch.Tensor) -> list[list[torch.Tensor]]:
+    def local_cells(self):
+        """The ``(iz, iy)`` shards this process holds, z-major."""
+        me, owners = process.process_index(), self.owners()
+        return [(iz, iy) for iz, iy in self.cells() if owners[iz][iy] == me]
+
+    def shard(self, x: torch.Tensor) -> list[list]:
         """Split a global ``(..., z, y, x)`` tensor into the ``[iz][iy]``
-        grid of shards, each on its mesh device."""
+        grid of shards: this process's on their mesh devices, another
+        rank's as `halo.Remote` placeholders."""
         n_z, n_y = self.counts()
         nz, ny = x.shape[-3], x.shape[-2]
         nz_l, ny_l = nz // n_z, ny // n_y
-        devs = self.devices()
-        return [[x[..., iz * nz_l:(iz + 1) * nz_l,
-                   iy * ny_l:(iy + 1) * ny_l, :].to(devs[iz][iy]).contiguous()
-                 for iy in range(n_y)] for iz in range(n_z)]
+        devs, owners = self.devices(), self.owners()
+        me = process.process_index()
+
+        def block(iz, iy):
+            sl = x[..., iz * nz_l:(iz + 1) * nz_l,
+                   iy * ny_l:(iy + 1) * ny_l, :]
+            if owners[iz][iy] != me:
+                return halo.Remote.like(owners[iz][iy], sl.shape, x.dtype)
+            return sl.to(devs[iz][iy]).contiguous()
+
+        return [[block(iz, iy) for iy in range(n_y)] for iz in range(n_z)]
 
     def gather(self, grid, device=None) -> torch.Tensor:
         """The global tensor of a shard grid, on `device` (default: the
-        first mesh device)."""
-        dev = device if device is not None else self.devices()[0][0]
-        rows = [torch.cat([b.to(dev) for b in row], dim=-2) for row in grid]
-        return torch.cat(rows, dim=-3)
+        first mesh device, or across processes this rank's first one).
+        Across processes every rank gets it: each shard is broadcast from
+        its owner, in grid order (through pinned host memory under
+        gloo)."""
+        if not self.multiprocess:
+            dev = device if device is not None else self.devices()[0][0]
+            rows = [torch.cat([b.to(dev) for b in row], dim=-2)
+                    for row in grid]
+            return torch.cat(rows, dim=-3)
+        mine = self.local_cells()
+        devs, owners = self.devices(), self.owners()
+        dev = torch.device(device if device is not None else
+                           devs[mine[0][0]][mine[0][1]] if mine else "cpu")
+        host = process.backend() == "gloo"
+        pin = host and dev.type == "cuda"
+        first = grid[0][0]
+        lead = tuple(first.shape[:-3])
+        nz = sum(row[0].shape[-3] for row in grid)
+        ny = sum(b.shape[-2] for b in grid[0])
+        out = torch.empty(lead + (nz, ny, first.shape[-1]),
+                          dtype=first.dtype, device=dev)
+        z0 = 0
+        for iz, row in enumerate(grid):
+            y0 = 0
+            for iy, b in enumerate(row):
+                zs = slice(z0, z0 + b.shape[-3])
+                ys = slice(y0, y0 + b.shape[-2])
+                y0 += b.shape[-2]
+                if halo.is_remote(b) or host:
+                    buf = torch.empty(tuple(b.shape), dtype=b.dtype,
+                                      device="cpu" if host else dev,
+                                      pin_memory=pin)
+                if not halo.is_remote(b):
+                    if host:
+                        buf.copy_(b)
+                    else:
+                        buf = b.contiguous()
+                dist.broadcast(buf, src=owners[iz][iy])
+                out[..., zs, ys, :] = buf
+            z0 += row[0].shape[-3]
+        return out
 
 
 def _grid(gs: GridSharding, fn):
     """``[iz][iy]`` grid of ``fn(iz, iy)``."""
     n_z, n_y = gs.counts()
     return [[fn(iz, iy) for iy in range(n_y)] for iz in range(n_z)]
+
+
+def _outputs(grid):
+    """An output grid shaped as `grid`: another rank's shards keep their
+    placeholders, this process's are filled in by the caller."""
+    return [[b if halo.is_remote(b) else None for b in row] for row in grid]
+
+
+def _each(grid, fn):
+    """`fn` on every block of a grid; a placeholder gets the shape of the
+    result (`halo.Remote.apply`)."""
+    return [[b.apply(fn) if halo.is_remote(b) else fn(b) for b in row]
+            for row in grid]
 
 
 # ---------------------------------------------------------------------------
@@ -335,8 +445,7 @@ def make_coeff_extender(spec: st.StencilSpec, t_block: int):
         if arrays is None:
             return Hoisted(None, tuple(scalars), g)
         ext = halo.exchange_2d(arrays, g)
-        return Hoisted([[_padx(b, g) for b in row] for row in ext],
-                       tuple(scalars), g)
+        return Hoisted(_each(ext, lambda b: _padx(b, g)), tuple(scalars), g)
 
     return extend
 
@@ -383,6 +492,54 @@ def local_extended_shape(spec: st.StencilSpec, mesh, grid_shape,
     return (nz // n_z + 2 * g, ny // n_y + 2 * g, nx + 2 * g)
 
 
+def _exchanged_shape(spec: st.StencilSpec, mesh, grid_shape, t_block: int,
+                     compress: bool) -> tuple[int, int, int]:
+    """A shard's block as the exchange ships it: x-padded by g when exact,
+    unpadded when compressed."""
+    g = spec.radius * t_block
+    nz, ny, nx = grid_shape
+    n_z, n_y = GridSharding(mesh).counts()
+    return (nz // n_z, ny // n_y, nx if compress else nx + 2 * g)
+
+
+def interior_halo_bytes(spec: st.StencilSpec, mesh, grid_shape, t_block: int,
+                        *, word_bytes: int = 4) -> int:
+    """Bytes one exact super-step sends from a shard whose four neighbours
+    are all other ranks': `halo.halo_bytes` of the x-padded block the
+    exchange ships, per exchanged solution stream (coefficients cross
+    once per run)."""
+    streams = 2 if spec.time_order == 2 else 1
+    return halo.halo_bytes(
+        _exchanged_shape(spec, mesh, grid_shape, t_block, False),
+        spec.radius * t_block, word_bytes, streams)
+
+
+def rank_halo_bytes(spec: st.StencilSpec, mesh, grid_shape, t_block: int,
+                    rank: int, *, word_bytes: int = 4,
+                    compress: bool = False) -> int:
+    """Bytes rank `rank`'s `halo.Carrier` sends in one super-step: per
+    shard it holds, `halo.halo_bytes` over the faces whose neighbour
+    another rank holds."""
+    gs = GridSharding(mesh)
+    owners = gs.owners()
+    n_z, n_y = gs.counts()
+    shape = _exchanged_shape(spec, mesh, grid_shape, t_block, compress)
+    streams = 2 if spec.time_order == 2 else 1
+    total = 0
+    for iz, iy in gs.cells():
+        if owners[iz][iy] != rank:
+            continue
+        faces = [f for f, (jz, jy) in (("z_lo", (iz - 1, iy)),
+                                       ("z_hi", (iz + 1, iy)),
+                                       ("y_lo", (iz, iy - 1)),
+                                       ("y_hi", (iz, iy + 1)))
+                 if 0 <= jz < n_z and 0 <= jy < n_y
+                 and owners[jz][jy] != rank]
+        total += halo.halo_bytes(shape, spec.radius * t_block, word_bytes,
+                                 streams, compress, faces)
+    return total
+
+
 def cap_plan_d_w(spec: st.StencilSpec, plan: MWDPlan,
                  ny_local: int) -> MWDPlan:
     """Clamp a plan's diamond width to a shard's y extent.
@@ -425,8 +582,8 @@ def resolve_shard_plan(spec: st.StencilSpec, mesh, grid_shape, t_block: int,
 def _xpadded(spec, g, cur, prev):
     """The x-padded local blocks: what the exact exchange extends and the
     overlapped interior reads (pad-of-concat equals concat-of-pads)."""
-    cur_x = [[_padx(b, g) for b in row] for row in cur]
-    prev_x = ([[_padx(b, g) for b in row] for row in prev]
+    cur_x = _each(cur, lambda b: _padx(b, g))
+    prev_x = (_each(prev, lambda b: _padx(b, g))
               if spec.time_order == 2 else cur_x)
     return cur_x, prev_x
 
@@ -441,6 +598,13 @@ class _Exchange:
     (`self.err` is then the state for the next super-step). Coefficients
     always exchange exact. `land` waits for the copies and returns the
     x-padded extended blocks ``(cur_e, prev_e)``.
+
+    The exchange runs as phase generators (`halo.exchange_2d_phases`):
+    starting it runs the z phase. On one process the y phase follows at
+    once, the streams ordering it; a `halo.Carrier` has only staged the z
+    slabs it sends (under gloo, device-to-host copies on the
+    communication stream), and `land` trades them, lands them and runs the
+    y phase, so the overlapped interior launches between the two.
     """
 
     def __init__(self, spec: st.StencilSpec, g: int, cur, prev, err,
@@ -451,34 +615,52 @@ class _Exchange:
         self.compressed = err is not None
         self.err = None
         if not self.compressed:
-            self.cur_e = halo.exchange_2d(self.cur_x, g, wire=wire)
-            self.prev_e = (halo.exchange_2d(self.prev_x, g, wire=wire)
-                           if second else self.cur_e)
+            self._phases = [halo.exchange_2d_phases(self.cur_x, g, wire)]
+            if second:
+                self._phases.append(
+                    halo.exchange_2d_phases(self.prev_x, g, wire))
+        else:
+            self._phases = [halo.exchange_2d_compressed_phases(
+                cur, g, err["cur"], wire)]
+            if second:
+                self._phases.append(halo.exchange_2d_compressed_phases(
+                    prev, g, err["prev"], wire))
+        for phases in self._phases:
+            next(phases)
+        self._done = None
+        if not isinstance(wire, halo.Carrier):
+            self._finish()
+
+    def _finish(self):
+        if self._done is not None:
             return
-        self.cur_e, e_cur = halo.exchange_2d_compressed(cur, g, err["cur"],
-                                                        wire=wire)
-        self.err = {"cur": e_cur}
-        self.prev_e = self.cur_e
-        if second:
-            self.prev_e, self.err["prev"] = halo.exchange_2d_compressed(
-                prev, g, err["prev"], wire=wire)
+        with self.wire.deferred():
+            self.wire.flush()
+            self._done = halo.drive(self._phases, self.wire)
+        self.wire.hand_over(self._done)
 
     def land(self):
         """Wait for the copies; the x-padded extended blocks."""
+        self._finish()
         self.wire.land()
-        if self.compressed:
-            self.cur_e = [[_padx(b, self.g) for b in row]
-                          for row in self.cur_e]
-            self.prev_e = ([[_padx(b, self.g) for b in row]
-                            for row in self.prev_e]
-                           if self.spec.time_order == 2 else self.cur_e)
-        return self.cur_e, self.prev_e
+        second = self.spec.time_order == 2
+        if not self.compressed:
+            cur_e = self._done[0]
+            return cur_e, (self._done[1] if second else cur_e)
+        (cur_e, e_cur) = self._done[0]
+        self.err = {"cur": e_cur}
+        cur_e = _each(cur_e, lambda b: _padx(b, self.g))
+        prev_e = cur_e
+        if second:
+            prev_e, self.err["prev"] = self._done[1]
+            prev_e = _each(prev_e, lambda b: _padx(b, self.g))
+        return cur_e, prev_e
 
 
 def _exchange_state(spec: st.StencilSpec, g: int, cur, prev, err):
     """The synchronous exchange: ``(cur_e, prev_e, new_err)`` with x-padded
     extended blocks, landed."""
-    ex = _Exchange(spec, g, cur, prev, err, halo.Wire())
+    ex = _Exchange(spec, g, cur, prev, err, halo.wire_for(cur))
     cur_e, prev_e = ex.land()
     return cur_e, prev_e, ex.err
 
@@ -519,8 +701,8 @@ def _local_super_step(spec: st.StencilSpec, t_block: int, gs: GridSharding,
     g = r * t_block
     cur_e, prev_e, new_err = _exchange_state(spec, g, cur, prev, err)
     sweep = ir.make_sweep(spec)
-    outs_a, outs_b = _grid(gs, lambda *_: None), _grid(gs, lambda *_: None)
-    for iz, iy in gs.cells():
+    outs_a, outs_b = _outputs(cur), _outputs(cur)
+    for iz, iy in gs.local_cells():
         nz_l, ny_l, nx_l = cur[iz][iy].shape
         a = cur_e[iz][iy]
         b = prev_e[iz][iy] if spec.time_order == 2 else a
@@ -585,7 +767,7 @@ def _local_super_step_zones(spec: st.StencilSpec, t_block: int,
     n_z, n_y = gs.counts()
     part = partition_geometry(cur[0][0].shape, g, n_z > 1, n_y > 1)
     sweep = ir.make_sweep(spec)
-    ex = _Exchange(spec, g, cur, prev, err, halo.Wire())
+    ex = _Exchange(spec, g, cur, prev, err, halo.wire_for(cur))
     if not overlap:
         cur_e, prev_e = ex.land()
     ioz, ioy = part.interior_origin
@@ -593,7 +775,7 @@ def _local_super_step_zones(spec: st.StencilSpec, t_block: int,
     azs = slice(g, g + part.local_shape[0]) if part.split_z else slice(None)
     ays = slice(g, g + part.local_shape[1]) if part.split_y else slice(None)
     interior = {}
-    for iz, iy in gs.cells():
+    for iz, iy in gs.local_cells():
         nz_l, ny_l, nx_l = part.local_shape
         if overlap:
             cur_l = _interior_pad(part, g, ex.cur_x[iz][iy])
@@ -614,8 +796,8 @@ def _local_super_step_zones(spec: st.StencilSpec, t_block: int,
                             b_i[ikz0:ikz1, iky0:iky1, xs])
     if overlap:
         cur_e, prev_e = ex.land()
-    outs_a, outs_b = _grid(gs, lambda *_: None), _grid(gs, lambda *_: None)
-    for iz, iy in gs.cells():
+    outs_a, outs_b = _outputs(cur), _outputs(cur)
+    for iz, iy in gs.local_cells():
         nz_l, ny_l, nx_l = part.local_shape
         xs = slice(g, g + nx_l)
         outs = {}
@@ -711,8 +893,8 @@ def _local_super_step_mwd(spec: st.StencilSpec, plan: MWDPlan, t_block: int,
     r = spec.radius
     g = r * t_block
     cur_e, prev_e, new_err = _exchange_state(spec, g, cur, prev, err)
-    outs_a, outs_b = _grid(gs, lambda *_: None), _grid(gs, lambda *_: None)
-    for iz, iy in gs.cells():
+    outs_a, outs_b = _outputs(cur), _outputs(cur)
+    for iz, iy in gs.local_cells():
         nz_l, ny_l, nx_l = cur[iz][iy].shape
         a, b = _mwd_block(spec, plan, coeffs.scalars, t_block, grid_shape, g,
                           cur_e[iz][iy], prev_e[iz][iy],
@@ -742,13 +924,13 @@ def _local_super_step_overlap_mwd(spec: st.StencilSpec, plan: MWDPlan,
     part = partition_geometry(cur[0][0].shape, g, n_z > 1, n_y > 1)
     nz_l, ny_l, nx_l = part.local_shape
     xs = slice(g, g + nx_l)
-    ex = _Exchange(spec, g, cur, prev, err, halo.Wire())
+    ex = _Exchange(spec, g, cur, prev, err, halo.wire_for(cur))
     ioz, ioy = part.interior_origin
     (ikz0, ikz1), (iky0, iky1) = part.interior_kept
     azs = slice(g, g + nz_l) if part.split_z else slice(None)
     ays = slice(g, g + ny_l) if part.split_y else slice(None)
     interior = {}
-    for iz, iy in gs.cells():
+    for iz, iy in gs.local_cells():
         cur_l = _interior_pad(part, g, ex.cur_x[iz][iy])
         prev_l = (_interior_pad(part, g, ex.prev_x[iz][iy])
                   if spec.time_order == 2 else cur_l)
@@ -759,8 +941,8 @@ def _local_super_step_overlap_mwd(spec: st.StencilSpec, plan: MWDPlan,
         interior[iz, iy] = (a_i[ikz0:ikz1, iky0:iky1, xs],
                             b_i[ikz0:ikz1, iky0:iky1, xs])
     cur_e, prev_e = ex.land()
-    outs_a, outs_b = _grid(gs, lambda *_: None), _grid(gs, lambda *_: None)
-    for iz, iy in gs.cells():
+    outs_a, outs_b = _outputs(cur), _outputs(cur)
+    for iz, iy in gs.local_cells():
         outs = {}
         for zn in part.zones:
             a_z, b_z = _mwd_block(spec, plan, coeffs.scalars, t_block,
@@ -835,18 +1017,20 @@ def make_super_step(spec: st.StencilSpec, mesh, grid_shape, t_block: int, *,
 def init_halo_error_global(spec: st.StencilSpec, mesh, grid_shape,
                            t_block: int):
     """Zero error-feedback faces for the compressed super-step: one
-    `halo.init_halo_error` dict per shard, on its device, per exchanged
-    stream ({"cur": grid} + "prev" for second-order ops)."""
+    `halo.init_halo_error` dict per shard of this process, on its device
+    (None for another rank's shard), per exchanged stream ({"cur": grid} +
+    "prev" for second-order ops)."""
     gs = GridSharding(mesh)
     g = spec.radius * t_block
     nz, ny, nx = grid_shape
     n_z, n_y = gs.counts()
     local = (nz // n_z, ny // n_y, nx)
     devs = gs.devices()
+    mine = set(gs.local_cells())
 
     def faces():
         return _grid(gs, lambda iz, iy: halo.init_halo_error(
-            local, g, devs[iz][iy]))
+            local, g, devs[iz][iy]) if (iz, iy) in mine else None)
 
     err = {"cur": faces()}
     if spec.time_order == 2:
@@ -877,6 +1061,11 @@ def run_distributed(spec: st.StencilSpec, mesh, state, coeffs, n_steps: int,
     per-shard extended block (`resolve_shard_plan`). An explicit plan
     whose D_w exceeds that block's y extent is rejected. plan=None runs
     the plain sweeps.
+
+    Across processes every rank calls this with the same global problem
+    (the reference's processes each pass the same host value) and gets
+    the global ``(cur, prev)`` on its first mesh device; "auto" resolves
+    on rank 0 alone (one tuner, one registry writer) and is broadcast.
     """
     gs = GridSharding(mesh)
     cur, prev = state
@@ -886,8 +1075,13 @@ def run_distributed(spec: st.StencilSpec, mesh, state, coeffs, n_steps: int,
         if plan != "auto":
             raise ValueError(
                 f"plan must be an MWDPlan or 'auto', got {plan!r}")
-        plan, _source = resolve_shard_plan(spec, mesh, grid_shape, t_block,
-                                           word_bytes=cur.element_size())
+        resolved = None
+        if not gs.multiprocess or process.process_index() == 0:
+            resolved = resolve_shard_plan(spec, mesh, grid_shape, t_block,
+                                          word_bytes=cur.element_size())
+        if gs.multiprocess:
+            resolved = process.broadcast_object(resolved)
+        plan, _source = resolved
     elif plan is not None and plan.d_w > shape_e[1]:
         raise ValueError(
             f"plan d_w={plan.d_w} exceeds the per-shard extended y extent "

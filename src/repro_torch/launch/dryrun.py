@@ -20,8 +20,10 @@ section 6 of the port's REPRODUCTION.md.
       --mesh pod --out "$(mktemp -d)/dryrun.json"
 
 Not ported: XLA's memory analysis, cost analysis and HLO collective
-schedule (`repro.launch.roofline.collective_bytes`); the collective term is
-0 until the multi-process route (ROADMAP.md queue 1, item 11b).
+schedule (`repro.launch.roofline.collective_bytes`). A stencil cell's
+collective bytes are its interior shard's halo bytes a super-step, what
+the multi-process stepper's carrier sends; an LM cell's are 0 until the
+sharded LM step (ROADMAP.md queue 1, item 14a).
 """
 
 from __future__ import annotations
@@ -195,13 +197,18 @@ def count_girih_cell(arch: str, grid_name: str, mesh, *, t_block: int = 0,
                      hoisted: bool = False, dtype=None):
     """Distributed deep-halo super-step for one stencil at production size.
 
-    Returns (flops_per_device, model_flops, model_bytes, arg_bytes, notes).
+    Returns (flops_per_device, model_flops, model_bytes, arg_bytes,
+    coll_bytes, notes).
     `arch` is girih-<op>, <op> anything `core.ir.resolve_op` accepts. The
     FLOPs are the op's per-update count over each shard's t_block-step
     trapezoid (`models.ghostzone_redundancy` times the shard's updates);
     the bytes the ghost-zone code balance on the local block; the argument
     bytes the local blocks of cur, prev and the coefficient pair
-    (`stepper.coeff_sds`, or `extended_coeff_sds` when hoisted).
+    (`stepper.coeff_sds`, or `extended_coeff_sds` when hoisted); the
+    collective bytes what an interior shard sends a super-step
+    (`stepper.interior_halo_bytes`: its four halo slabs per exchanged
+    solution stream, as the multi-process carrier ships them), under
+    ``collective-permute``.
     """
     from repro_torch.core import ir, precision
     from repro_torch.core import models as cmodels
@@ -233,7 +240,9 @@ def count_girih_cell(arch: str, grid_name: str, mesh, *, t_block: int = 0,
                                         word_bytes=word)
     mbytes = bc * lups / n_dev
     ext = stepper.local_extended_shape(spec, mesh, (nz, ny, nx), tb)
-    return (mflops / n_dev * redo, mflops, mbytes, arg_bytes,
+    coll = {"collective-permute": float(stepper.interior_halo_bytes(
+        spec, mesh, (nz, ny, nx), tb, word_bytes=word))}
+    return (mflops / n_dev * redo, mflops, mbytes, arg_bytes, coll,
             f"t_block={tb} hoisted={hoisted} "
             f"dtype={precision.dtype_name(dt)} Bc_gz={bc:.2f}B/LUP "
             f"local extended block {'x'.join(map(str, ext))}")
@@ -254,8 +263,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
     mesh = production_mesh(multi_pod)
     n_dev = mesh.devices.size
     t0 = time.perf_counter()
+    coll = None
     if arch.startswith("girih-"):
-        flops, mflops, mbytes, arg_bytes, notes = count_girih_cell(
+        flops, mflops, mbytes, arg_bytes, coll, notes = count_girih_cell(
             arch, shape_name, mesh, t_block=t_block, hoisted=hoisted,
             dtype=dtype)
         counted_bytes = None
@@ -274,7 +284,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         arch=arch, shape=shape_name, mesh_name=mesh_name(multi_pod),
         n_devices=n_dev, flops_per_device=flops,
         bytes_per_device=counted_bytes, arg_bytes_per_device=arg_bytes,
-        model_flops=mflops, model_bytes=mbytes,
+        model_flops=mflops, model_bytes=mbytes, coll_bytes=coll,
         lower_s=time.perf_counter() - t0,
         notes=(f"[{tag}] " if tag else "") + notes)
     if verbose:

@@ -1,12 +1,16 @@
 """Device meshes: the distributed stencil stepper's and the LM's.
 
-The port of `repro.launch.mesh`. The port runs one process that holds
-every shard of the grid as a tensor on its mesh device, as the reference
-drives every device of its mesh from one controller: a `Mesh` is an object
-array of `torch.device`s plus axis names. A device may appear more than
-once: ``[cuda:0] * 4`` is how one card hosts a 2x2 mesh, whose halo
-exchange is then device-to-device copies on that card (peer copies over
-NVLink where the devices differ).
+The port of `repro.launch.mesh`. A `Mesh` is an object array of mesh
+entries plus axis names. On one controller (the default) the entries are
+`torch.device`s, and one process holds every shard of the grid as a tensor
+on its mesh device, as the reference drives every device of its mesh from
+one controller. A device may appear more than once: ``[cuda:0] * 4`` is
+how one card hosts a 2x2 mesh, whose halo exchange is then
+device-to-device copies on that card (peer copies over NVLink where the
+devices differ). Under a process group (`distributed.process`) the
+entries are `ProcessDevice`s, each owned by one rank: `make_process_mesh`
+all-gathers every rank's local devices into rows, one row per rank, and
+`make_mesh` takes any layout of them over the ranks.
 
 The LM half: `production_layout` and `make_production_mesh` (16x16
 ``('data', 'model')``, or 2x16x16 with ``'pod'`` in front), `batch_axes` and `model_axis`, which
@@ -25,12 +29,15 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import process
+from repro_torch.distributed.process import ProcessDevice
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """A named grid of devices: ``devices`` is an object array of
-    `torch.device`s whose axes are ``axis_names``."""
+    `torch.device`s (or `ProcessDevice`s) whose axes are
+    ``axis_names``."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
@@ -69,14 +76,16 @@ def device_pool(n: int, device=None) -> list[torch.device]:
 
 def make_mesh(shape, axes, devices=None) -> Mesh:
     """A `Mesh` of `shape` over exactly ``prod(shape)`` devices (default:
-    the card's devices round robin, `device_pool`)."""
+    the card's devices round robin, `device_pool`). `ProcessDevice`
+    entries stay as they are, in any layout over the ranks."""
     n = int(np.prod(shape))
     pool = device_pool(n) if devices is None else list(devices)
     if len(pool) != n:
         raise ValueError(f"a {tuple(shape)} mesh needs {n} devices, got "
                          f"{len(pool)}")
     grid = np.empty(n, dtype=object)
-    grid[:] = [torch.device(d) for d in pool]
+    grid[:] = [d if isinstance(d, ProcessDevice) else torch.device(d)
+               for d in pool]
     return Mesh(grid.reshape(tuple(shape)), tuple(axes))
 
 
@@ -136,14 +145,28 @@ def process_grid(devices) -> list[list]:
 
 def make_process_mesh(devices=None) -> Mesh:
     """Mesh keyed on the process topology (`process_grid`): row p is the
-    local devices of process p, so the 'data' axis (grid z) crosses hosts
-    and 'model' (grid y) stays on one host's cards.
+    local devices of process p, so the 'data' axis (grid z) crosses
+    processes and 'model' (grid y) stays on one process's devices.
 
-    One process holds the whole mesh in this port, so `torch.device`s
-    count as process 0 with their index as id, and the mesh degenerates
-    to ``(1, n_local)``. Stand-ins with ``.process_index``/``.id`` and a
-    ``.device`` pass through to their device.
+    Under a process group, `devices` are this rank's local devices
+    (default: its card, `process.rank_device`, or the CPU when there is
+    no card); every rank's list is all-gathered as `ProcessDevice`s, ids in
+    list order, and the mesh is ``(process_count, n_local)``. Without one,
+    `torch.device`s count as process 0 with their index as id, and the
+    mesh degenerates to ``(1, n_local)``; stand-ins with
+    ``.process_index``/``.id`` and a ``.device`` pass through to their
+    device.
     """
+    if process.process_count() > 1:
+        if devices is None:
+            kind = "cuda" if torch.cuda.is_available() else "cpu"
+            devices = [process.rank_device(kind)]
+        mine = [ProcessDevice(process.process_index(), k, torch.device(d))
+                for k, d in enumerate(devices)]
+        rows = process_grid([d for part in process.all_gather_object(mine)
+                             for d in part])
+        return make_mesh((len(rows), len(rows[0])), ("data", "model"),
+                         [d for row in rows for d in row])
     devs = local_devices() if devices is None else list(devices)
     tagged = [d if hasattr(d, "process_index") else types.SimpleNamespace(
         process_index=0, id=k, device=d) for k, d in enumerate(devs)]

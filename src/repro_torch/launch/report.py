@@ -474,10 +474,12 @@ def dryrun_section(dr: list[dict]) -> list[str]:
                "cells are the ghost-zone model. The")
     out.append("terms are priced on the device spec `h100-sxm` "
                "(data-sheet peaks: bf16 tensor-core FLOP/s,")
-    out.append("HBM bytes/s). The spec has no interconnect, so the "
-               "collective term is 0 in every cell")
-    out.append("until the multi-process route (ROADMAP.md queue 1, item "
-               "11b).")
+    out.append("HBM bytes/s, NVLink's one-way rate). A girih cell's "
+               "collective bytes are its interior")
+    out.append("shard's halo slabs a super-step, what the multi-process "
+               "carrier sends; an LM cell's")
+    out.append("collective term is 0 until the sharded LM step "
+               "(ROADMAP.md queue 1, item 14a).")
     out.append("")
     out.append("### 16x16 pod (256 devices)")
     out.append("")

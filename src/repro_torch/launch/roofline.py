@@ -4,17 +4,20 @@ The port of `repro.launch.roofline`, analytic half:
 
   compute    = FLOPs_dev / peak_bf16
   memory     = bytes_dev / hbm_bw          (the analytic traffic model)
-  collective = 0
+  collective = coll_bytes_dev / (ici_bw_per_link * ici_links / 2)
 
 The reference reads FLOPs, bytes and collective bytes from an XLA
 executable (``cost_analysis``, the HLO text). The port has none: the
 dry-run (`launch.dryrun`) counts the FLOPs of the cell's step on meta
 tensors (``torch.utils.flop_counter``) and the bytes every operator reads
 and writes, and `analyze_counts` prices them against the device spec
-(``h100-sxm`` by default, data-sheet peaks). The spec has no interconnect,
-so the collective term is 0 (`core.models.roofline`); collective bytes come
-with the multi-process route (ROADMAP.md queue 1, item 11b), from its own
-``torch.distributed`` collectives.
+(``h100-sxm`` by default, data-sheet peaks, NVLink for the collective
+term: `core.models.roofline`). A stencil (girih) cell's collective bytes
+are what the multi-process stepper's carrier sends from an interior shard
+in one super-step (`distributed.stepper.interior_halo_bytes`, the
+reference's ``collective-permute``). An LM cell's stay 0 until the
+sharded LM step over distinct cards (ROADMAP.md queue 1, item 14a) has
+collectives of its own to count.
 """
 
 from __future__ import annotations
@@ -135,23 +138,28 @@ def analyze_counts(*, arch: str, shape: str, mesh_name: str, n_devices: int,
                    flops_per_device: float, bytes_per_device: float | None,
                    arg_bytes_per_device: float, model_flops: float,
                    model_bytes: float, lower_s: float, notes: str = "",
+                   coll_bytes: dict[str, float] | None = None,
                    chip: devspecs.DeviceSpec | None = None) -> DryrunResult:
-    """The roofline record of one cell from its counted FLOPs and bytes
+    """The roofline record of one cell from its counted FLOPs and bytes,
+    its per-device collective bytes by kind (`COLLECTIVES`, default none)
     and its per-device argument bytes (the reference's `analyze` reads
     them from a compiled executable). `chip=None` prices the terms against
     the process default device spec (``--spec`` /
     ``$REPRO_TORCH_DEVICE_SPEC``, else ``h100-sxm``)."""
     chip = chip or devspecs.current_spec()
+    coll = {k: 0.0 for k in COLLECTIVES}
+    coll.update(coll_bytes or {})
+    total = sum(coll.values())
     return DryrunResult(
         arch=arch, shape=shape, mesh=mesh_name, n_devices=n_devices,
         flops_per_device=flops_per_device, bytes_per_device=bytes_per_device,
         model_bytes_per_device=model_bytes,
-        coll_bytes={k: 0.0 for k in COLLECTIVES},
+        coll_bytes=coll,
         peak_bytes_per_device=None,
         arg_bytes_per_device=float(arg_bytes_per_device),
         model_flops_global=model_flops,
-        terms=roofline(flops_per_device, model_bytes, 0.0, chip),
-        terms_hlo=(roofline(flops_per_device, bytes_per_device, 0.0, chip)
+        terms=roofline(flops_per_device, model_bytes, total, chip),
+        terms_hlo=(roofline(flops_per_device, bytes_per_device, total, chip)
                    if bytes_per_device is not None else None),
         lower_s=lower_s, compile_s=0.0, notes=notes)
 

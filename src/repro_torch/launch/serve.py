@@ -10,7 +10,7 @@ stencil request-queue server on the port's MWD kernel.
 
 The port of `repro.launch.serve`. The LM half (no ``--stencil``): the
 one-device mesh of the card ``--device`` names (`elastic.build_mesh`;
-a split over cards waits for ROADMAP.md queue 1, item 11b), the seed-0
+a split over cards waits for ROADMAP.md queue 1, item 14a), the seed-0
 parameters of ``--arch`` (reduced unless ``--no-reduced``) placed with
 `training.sharding.place`, numpy-seeded prompts, `prefill_into_cache`
 (the prompt stepped through the decode path), then a greedy decode loop
@@ -111,7 +111,7 @@ def serve_lm(cfg, batch: int, prompt_len: int, gen: int,
     if not cfg.supports_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode")
     dev = resolve_device(device)
-    # the one card `device` names: a split over cards waits for item 11b
+    # the one card `device` names: a split over cards waits for item 14a
     mesh = elastic.build_mesh(devices=[dev])
     specs = lm.param_specs(cfg)
     params = shd.place(tree_init(specs, seed=0, device="cpu"),

@@ -7,8 +7,8 @@ the newest checkpoint if present onto the same placement
 (`steps.train_state_specs`' shardings), and runs the step loop with async
 checkpointing and deadline-based straggler accounting. The mesh is 1x1,
 so every leaf is stored whole on that card, also on a host with several:
-a split over distinct devices waits for the multi-process route
-(ROADMAP.md queue 1, item 11b).
+a split over distinct devices waits for the sharded LM step (ROADMAP.md
+queue 1, item 14a).
 
 With --reduced (the default) it trains the smoke-scale config of any
 architecture; --full trains the published width and depth.
@@ -123,7 +123,7 @@ def main(argv=None, records: list | None = None):
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
     cfg, opt, train_step, pipe = build(args)
-    # the one card `--device` names: a split over cards waits for item 11b
+    # the one card `--device` names: a split over cards waits for item 14a
     mesh = elastic.build_mesh(devices=[dev])
     print(f"mesh: {mesh.shape} over {mesh.devices.size} devices")
     spec_tree = lm.param_specs(cfg)

@@ -3,8 +3,8 @@
 The port of `repro.models.common`. The reference pins activations to mesh
 axes with ``with_sharding_constraint`` and drops the axes its mesh lacks.
 The port runs one process that holds every tensor whole on one device
-(`training.sharding.place` refuses a real split until the multi-process
-route, ROADMAP.md queue 1 item 11b), so `constrain` is the identity: the
+(`training.sharding.place` refuses a real split until the sharded LM
+step, ROADMAP.md queue 1 item 14a), so `constrain` is the identity: the
 model code keeps the reference's call sites and their logical axes, and a
 sharded activation layout has one place to go.
 """

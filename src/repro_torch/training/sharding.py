@@ -16,8 +16,8 @@ it with a `launch.mesh.Mesh`. `local_shape` gives the block one device
 holds, and `place` is the port's ``device_put``: it stores each leaf on its
 mesh device, whole where every device of the mesh is one device (the one
 card, or ``[cpu] * k`` in tests), and refuses a real split over distinct
-devices, which needs the multi-process route (ROADMAP.md queue 1, item
-11b).
+devices, which needs the sharded LM step over distinct cards (ROADMAP.md
+queue 1, item 14a).
 """
 
 from __future__ import annotations
@@ -222,8 +222,8 @@ def device_for(sh: NamedSharding) -> torch.device:
         raise NotImplementedError(
             f"a leaf split over mesh axes {split} of distinct devices "
             f"{sorted(map(str, devices))}: one process holds each leaf "
-            "whole on one device; a real split needs the multi-process "
-            "route (ROADMAP.md queue 1, item 11b)")
+            "whole on one device; a real split needs the sharded LM step "
+            "over distinct cards (ROADMAP.md queue 1, item 14a)")
     return sh.mesh.devices.flat[0]
 
 

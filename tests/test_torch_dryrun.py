@@ -210,6 +210,19 @@ def test_run_cell_and_dryrun_result_keys(tmp_path):
     assert g.bytes_per_device is None and "Bc_gz" in g.notes
     assert tmodels.ghostzone_code_balance(tst.SPECS["25pt-var"], 2, 128,
                                           64) == bc
+    # its collective bytes: an interior shard's halo slabs a super-step,
+    # what the multi-process carrier sends (test_torch_multiprocess.py
+    # holds the carrier to the same function), priced one way over NVLink
+    from repro_torch.distributed import stepper
+    halo = stepper.interior_halo_bytes(
+        tst.SPECS["25pt-var"], dryrun.production_mesh(True), (2048,) * 3, 2)
+    # 2x16x16: a 64 x 128 x 2048 shard, g = 8, x-padded to 2064; four
+    # f32 slabs of the one solution stream
+    assert halo == 4 * 2 * (8 * 128 * 2064 + 8 * (64 + 16) * 2064)
+    assert g.coll_bytes["collective-permute"] == halo
+    assert sum(g.coll_bytes.values()) == halo
+    assert g.terms.t_collective == halo / (h100.ici_bw_per_link
+                                           * h100.ici_links / 2)
 
 
 def test_main_writes_records_and_the_report_renders(tmp_path, capsys):

@@ -926,3 +926,17 @@ def test_lm_place_allocates_the_local_bytes_on_the_card(cuda, arch):
     placed = shd.place(host, shards)
     assert requested() - before == want
     assert all(t.device == dev for _, t in tree_paths(placed))
+
+
+@pytest.mark.gpu
+def test_two_ranks_share_the_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 with two shards each (a 2x2 process mesh,
+    z across the ranks), 64^3 7pt-var, K1 per shard at plan="auto",
+    synchronous and overlapped: bitwise equal to ops.naive, K1 launched
+    on both ranks."""
+    import _mp_ranks
+    from repro_torch.distributed import process
+    out = process.launch(_mp_ranks.card2, 2, (str(tmp_path / "plans.json"),),
+                         timeout_s=300)
+    assert out[0][False] and out[0][True]
+    assert all(r["launches"] > 0 for r in out)

@@ -132,8 +132,12 @@ def test_ecm_and_roofline_match_reference_on_the_same_numbers(name,
                   "t_bound", "roofline_fraction"):
             close(getattr(t, f), getattr(r, f))
         assert t.dominant == r.dominant
-    # no interconnect in the spec: the collective term stays 0
-    assert tmodels.roofline(1e6, 1e6, 1e9, tchip).t_collective == 0.0
+    # the collective term: the bytes a card sends over all of its NVLink
+    # links one way (half the data sheet's both-ways rate)
+    one_way = tchip.ici_bw_per_link * tchip.ici_links / 2
+    assert one_way == 450e9
+    assert tmodels.roofline(1e6, 1e6, 1e9, tchip).t_collective == \
+        1e9 / one_way
 
 
 def test_smem_plan_hand_counts_from_mwd_cu():

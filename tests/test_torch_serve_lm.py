@@ -161,7 +161,7 @@ def test_lm_launchers_hold_one_device_where_several_are_visible(
     """Both LM launchers build the 1x1 mesh of the device ``--device``
     names, also where the host shows two (here ``cpu`` and ``meta``): a
     mesh over both would split the vocab over 'model', which `place`
-    refuses until the multi-process route."""
+    refuses until the sharded LM step."""
     monkeypatch.setattr(tmesh, "local_devices", lambda device=None: [
         torch.device("cpu"), torch.device("meta")])
     if launcher == "serve":
