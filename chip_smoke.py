@@ -242,6 +242,33 @@ failure so the script exits non-zero:
    peak memory and K1 launches per rank. With two cards or more 12a's
    checks run again over NCCL, one card per rank; on one card the phase
    prints that this leg was not run, and why.
+13. the sharded LM step across torch.distributed ranks (FSDP over
+   'data', tensor parallelism over 'model', training.spmd): four ranks
+   spawned by process.launch on cuda:0 over gloo under one join
+   deadline, released once the one-process runs they are held against
+   are done (the ranks start up meanwhile). 13a launch.train.main on every rank, the mesh plan_mesh
+   gives four ranks, (1, 4): llama3.2-1b --full, bf16, batch 2 x 512,
+   2 steps, the losses within 2e-2 relative of the same argv in one
+   process; 13b the train step on a (2, 2) mesh, llama3.2-1b at full
+   width cut to 1 layer, float32, batch 2 x 256: loss, grad_norm and
+   the next loss within 1e-4 x max(1, |ref|) of the one-process step;
+   13c 13b's state gathered whole on (2, 2) (sharding.gather), written by
+   rank 0 and restored on (1, 4), bitwise equal gathered (each block the
+   shape local_shape gives); 13d
+   launch.serve.serve_lm on every rank, (1, 4): llama3.2-1b at full
+   width cut to 4 of its 16 layers, bf16, batch 8, prompt 16, 8 tokens
+   (the share of ids equal to one process recorded), then 1 layer,
+   float32, 4 tokens, ids equal to one process. Before they are
+   released the ranks load the card's libraries and kernels with reduced
+   steps of their own and build their groups (a few ms on the card). Every rank's state bytes equal local_bytes, and the
+   collective bytes each rank counts (training.spmd.COUNTER) equal the
+   dry-run's count of the step (launch.dryrun.count_collectives) times
+   the steps run. One `lm_sharded` line per run with the card's name and
+   power limit: the mesh, ms a step and tokens/s beside one process,
+   each rank's peak GB and state bytes, the bytes and calls by kind, the
+   share of the step inside gloo and in staging, rank 0's device idle
+   share and costliest operations (torch.profiler). No stencil kernel
+   runs in this phase.
 
 Before the last line come one `baseline` JSON line per (op, method) and a
 JSON object with one entry per kernel (K1's launches from phases 4, 4b,
@@ -273,6 +300,7 @@ prefetch and instance.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import itertools
 import json
@@ -3550,6 +3578,511 @@ def phase_multiprocess(dist_rows: dict) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded LM step across torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+LMS_RANKS = 4
+LMS_DEADLINE_S = 480.0        # the spawn's join deadline
+LMS_TRAIN = ("llama3.2-1b", 2, 512, 2)    # 13a: arch, batch, seq, steps
+LMS_F32 = ("llama3.2-1b", 1, 2, 256)      # 13b: arch, layers, batch, seq
+LMS_F32_MESH, LMS_CKPT_TO = (2, 2), (1, 4)
+LMS_SERVE = ("llama3.2-1b", 8, 16, 8)     # 13d: arch, batch, prompt, gen
+LMS_SERVE_LAYERS = 4                      # 13d's bf16 leg: 4 of 16 layers
+LMS_SERVE_F32_GEN = 4
+
+
+def lms_train_argv() -> list:
+    """13a's launcher arguments: the published width, bf16."""
+    arch, batch, seq, steps = LMS_TRAIN
+    return ["--full", "--arch", arch, "--steps", str(steps), "--batch",
+            str(batch), "--seq", str(seq), "--device", "cuda"]
+
+
+def lms_f32_cfg(arch=LMS_F32[0], layers=LMS_F32[1]):
+    """A config at the published width, `layers` deep, in float32."""
+    return dataclasses.replace(lms_serve_cfg(arch, layers), dtype="float32")
+
+
+def lms_serve_cfg(arch=LMS_SERVE[0], layers=LMS_SERVE_LAYERS):
+    """A config at the published width, `layers` deep."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch), n_layers=layers)
+
+
+def lms_f32_steps(mesh, dev) -> dict:
+    """13b: two float32 train steps of `lms_f32_cfg` from seed-0 weights
+    on a seed-0 batch (the sharded step on a process `mesh`, else the
+    one-process step): step 0's metrics, the next loss, each step's ms
+    and the state left."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_init
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.training import sharding as shd
+    from repro_torch.training import steps as tsteps
+    cfg = lms_f32_cfg()
+    _, _, b, s = LMS_F32
+    opt, step = tsteps.make_train_step(cfg, chunk=s, mesh=mesh)
+    specs = lm.param_specs(cfg)
+    params = tree_init(specs, seed=0, device="cpu")
+    params = (shd.place(params, shd.param_shardings(mesh, specs))
+              if mesh is not None else tree_map(lambda t: t.to(dev), params))
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                              dtype=torch.int32).to(dev)
+             for k in ("tokens", "labels")}
+    out = {"ms": []}
+    for i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        if i == 0:
+            out["m0"] = {k: float(v) for k, v in m.items()}
+        else:
+            out["loss1"] = loss
+    out.update(state=state, step=step, batch=batch, cfg=cfg)
+    return out
+
+
+def lms_close(got: float, want: float, tol: float) -> bool:
+    return abs(got - want) <= tol * max(1.0, abs(want))
+
+
+def lms_bytes(tree) -> int:
+    from repro_torch.optim.optimizers import tree_paths
+    return sum(t.numel() * t.element_size() for _, t in tree_paths(tree))
+
+
+def lms_counter(counter: dict, step_s: float) -> dict:
+    """A rank's collectives over the run: bytes and calls by kind, and
+    the shares of the steps' time inside gloo and in staging."""
+    return {"bytes": counter["bytes"], "calls": counter["calls"],
+            "gloo_s": counter["wire_s"], "staging_s": counter["stage_s"],
+            "gloo_share": counter["wire_s"] / step_s,
+            "staging_share": counter["stage_s"] / step_s}
+
+
+def lms_profiled(rank: int, fn):
+    """`fn` on every rank, under the profiler on rank 0 (its device idle
+    share and costliest operations)."""
+    if rank == 0:
+        return device_split(fn)
+    fn()
+    return None
+
+
+def lms_wait(go: str) -> None:
+    """Wait until the parent's one-process runs are done and it writes
+    `go` ("run", or "abort" when they failed)."""
+    t0 = time.perf_counter()
+    while not os.path.exists(go):
+        check(time.perf_counter() - t0 < LMS_DEADLINE_S,
+              "13: the parent never released the ranks")
+        time.sleep(0.2)
+    with open(go) as f:
+        check(f.read() == "run", "13: the parent's one-process runs failed")
+
+
+def lms_warm(dev) -> None:
+    """Load what a step of this rank uses on the card (the CUDA
+    libraries, the kernels, the groups' connections) before the rank is
+    released: reduced llama train steps in bf16 and float32 in this
+    process alone, and the (1, 4) and (2, 2) groups. The card's work is a
+    few milliseconds."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_init
+    from repro_torch.training import spmd
+    from repro_torch.training import steps as tsteps
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(configs.reduced(configs.get("llama3.2-1b")),
+                                  dtype=dtype)
+        opt, step = tsteps.make_train_step(cfg, chunk=16)
+        params = tree_init(lm.param_specs(cfg), seed=0, device=dev)
+        batch = {k: torch.zeros((2, 16), dtype=torch.int32, device=dev)
+                 for k in ("tokens", "labels")}
+        float(step({"params": params, "opt": opt.init(params),
+                    "step": torch.zeros((), dtype=torch.int32)},
+                   batch)[1]["loss"])
+    for shape in ((1, 4), LMS_F32_MESH):
+        spmd.layout_of(launch_mesh.rank_mesh(shape, device=dev))
+
+
+def lms_rank(rank, world_size, init_method, ckpt_dir, go):
+    """Phase 13 on one of the four ranks sharing cuda:0 over gloo, once
+    the parent releases it (`lms_wait`): 13a launch.train.main
+    (plan_mesh: (1, 4)), 13b the float32 step on (2, 2), 13c its
+    checkpoint restored on (1, 4), 13d serve_lm on (1, 4). Returns what
+    the parent checks and prints; raises on a failed check here."""
+    import torch
+    from repro_torch.distributed import checkpoint, elastic, process
+    from repro_torch.launch import serve, train
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_abstract
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.optimizers import tree_map, tree_paths
+    from repro_torch.training import sharding as shd
+    from repro_torch.training import spmd
+    from repro_torch.training import steps as tsteps
+    dev = mp_join(rank, world_size, init_method, "gloo")
+    out = {}
+    try:
+        lms_warm(dev)
+        lms_wait(go)
+        process.barrier()
+        # 13a: the launcher, every rank in the mesh plan_mesh gives
+        t_part = time.perf_counter()
+        argv = lms_train_argv()
+        spmd.COUNTER.reset()
+        torch.cuda.reset_peak_memory_stats()
+        records = []
+        t = time.perf_counter()
+        state = train.main(argv, records=records)
+        main_s = time.perf_counter() - t
+        counter = spmd.COUNTER.snapshot()
+        mesh = elastic.build_mesh(devices=launch_mesh.rank_devices(dev))
+        cfg, _, step, pipe = train.build(train.build_parser().parse_args(
+            argv), mesh)
+        sds, sh_fn = tsteps.train_state_specs(cfg)
+        n_steps = LMS_TRAIN[3]
+        a = {"mesh": list(mesh.devices.shape), "records": records,
+             "main_s": main_s,
+             "counter": lms_counter(counter, sum(r["ms"] for r in records)
+                                    / 1e3),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "state_bytes": lms_bytes(state),
+             "local_bytes": shd.local_bytes(sds, sh_fn(mesh))}
+        data = pipe.get_batch(n_steps, cfg, device=dev)
+        a["profiled"] = lms_profiled(
+            rank, lambda: float(step(state, data)[1]["loss"]))
+        out["13a"] = a
+        del state, step, data
+        torch.cuda.empty_cache()
+        a["wall_s"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # 13b: float32 at full width, 1 layer, on a (2, 2) mesh
+        mesh22 = launch_mesh.rank_mesh(LMS_F32_MESH, device=dev)
+        spmd.COUNTER.reset()
+        torch.cuda.reset_peak_memory_stats()
+        run = lms_f32_steps(mesh22, dev)
+        counter = spmd.COUNTER.snapshot()
+        cfg = run["cfg"]
+        sds, sh_fn = tsteps.train_state_specs(cfg)
+        bb = {"mesh": list(LMS_F32_MESH), "m0": run["m0"],
+              "loss1": run["loss1"], "ms": run["ms"],
+              "counter": lms_counter(counter, sum(run["ms"]) / 1e3),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "state_bytes": lms_bytes(run["state"]),
+              "local_bytes": shd.local_bytes(sds, sh_fn(mesh22))}
+        state, step, data = run["state"], run["step"], run["batch"]
+        bb["profiled"] = lms_profiled(
+            rank, lambda: float(step(state, data)[1]["loss"]))
+        out["13b"] = bb
+        bb["wall_s"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # 13c: 13b's state written on (2, 2), restored on (1, 4): the
+        # state made whole leaf by leaf on the host (what save(shardings=)
+        # gathers), written by rank 0
+        t = time.perf_counter()
+        written = tree_map(lambda leaf, sh: shd.gather(leaf, sh).cpu(),
+                           state, sh_fn(mesh22))
+        checkpoint.save(ckpt_dir, 2, written)
+        save_s = time.perf_counter() - t
+        written = dict(tree_paths(written))
+        del state, step, data, run
+        torch.cuda.empty_cache()
+        mesh14 = launch_mesh.rank_mesh(LMS_CKPT_TO, device=dev)
+        sh14 = sh_fn(mesh14)
+        like = {"params": tree_abstract(lm.param_specs(cfg)),
+                "step": torch.zeros((), dtype=torch.int32)}
+        like["opt"] = make_optimizer(cfg.optimizer).init(like["params"])
+        t = time.perf_counter()
+        step_no, restored = checkpoint.restore(ckpt_dir, like,
+                                               shardings=sh14)
+        restore_s = time.perf_counter() - t
+        pairs = dict(tree_paths(sh14))
+        shapes_ok, equal = True, True
+        for n, leaf in tree_paths(restored):
+            sh = pairs[n]
+            shapes_ok &= tuple(leaf.shape) == shd.local_shape(
+                sds_shape(sds, n), sh.spec, sh.mesh)
+            equal &= torch.equal(shd.gather(leaf, sh).cpu(), written[n])
+        check(step_no == 2 and shapes_ok,
+              f"13c: restored step {step_no}, block shapes {shapes_ok}")
+        check(equal, "13c: the state restored on (1, 4) differs from "
+              "the one written on (2, 2)")
+        out["13c"] = {"save_s": save_s, "restore_s": restore_s,
+                      "bitwise": equal, "leaves": len(pairs)}
+        del restored, written
+        torch.cuda.empty_cache()
+        out["13c"]["wall_s"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # 13d: serve_lm on every rank (plan_mesh: (1, 4)), bf16 then f32
+        arch, batch, prompt, gen = LMS_SERVE
+        cfg = lms_serve_cfg()
+        spmd.COUNTER.reset()
+        torch.cuda.reset_peak_memory_stats()
+        rec = serve.serve_lm(cfg, batch, prompt, gen, device="cuda")
+        counter = spmd.COUNTER.snapshot()
+        smesh = elastic.build_mesh(devices=launch_mesh.rank_devices(dev))
+        c_spec = lm.cache_spec(cfg, batch, prompt + gen)
+        specs = lm.param_specs(cfg)
+        from repro_torch.models.params import tree_sds
+        d = {"mesh": list(smesh.devices.shape), "ids": rec["ids"].tolist(),
+             **{k: rec[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                    "tokens_per_s")},
+             "counter": lms_counter(counter, (rec["prefill_ms"] + sum(
+                 rec["decode_ms"])) / 1e3),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "state_bytes": lms_bytes(rec["params"])
+             + lms_bytes(rec["cache"]),
+             "local_bytes": shd.local_bytes(
+                 tree_sds(specs), shd.param_shardings(smesh, specs))
+             + shd.local_bytes(c_spec, shd.cache_shardings(
+                 smesh, cfg, c_spec, seq_shard=False))}
+        serve_step = tsteps.make_serve_step(cfg, mesh=smesh)
+        params, cache, toks = rec["params"], rewind(rec["cache"]), rec["next"]
+        d["profiled"] = lms_profiled(
+            rank, lambda: serve_step(params, cache, toks))
+        del rec, params, cache, toks
+        torch.cuda.empty_cache()
+        rec = serve.serve_lm(lms_f32_cfg(), batch, prompt,
+                             LMS_SERVE_F32_GEN, device="cuda")
+        d["ids_f32"] = rec["ids"].tolist()
+        d["wall_s"] = time.perf_counter() - t_part
+        out["13d"] = d
+        return out
+    finally:
+        process.finalize()
+
+
+def sds_shape(sds, name: str) -> tuple:
+    """The global shape of leaf `name` of a `TensorSpec` tree."""
+    from repro_torch.optim.optimizers import tree_paths
+    return tuple(dict(tree_paths(sds))[name].shape)
+
+
+def lms_line(phase: str, card: str, ranks: list, extra: dict) -> dict:
+    """One `lm_sharded` line from the ranks' results of `phase`."""
+    rows = [r[phase] for r in ranks]
+    r0 = rows[0]
+    line = {"phase": phase, "card": card, "ranks": len(rows),
+            "backend": "gloo", "mesh": r0["mesh"], **extra,
+            "peak_gb_per_rank": [r["peak_gb"] for r in rows],
+            "state_bytes_per_rank": [r["state_bytes"] for r in rows],
+            "local_bytes": r0["local_bytes"],
+            "coll_bytes_rank0": r0["counter"]["bytes"],
+            "coll_calls_rank0": r0["counter"]["calls"],
+            "wall_s_per_rank": [r["wall_s"] for r in rows],
+            "gloo_share_per_rank": [r["counter"]["gloo_share"]
+                                    for r in rows],
+            "staging_share_per_rank": [r["counter"]["staging_share"]
+                                       for r in rows]}
+    prof = r0.get("profiled")
+    if prof is not None:
+        line["idle_share_rank0"] = prof["idle_share"]
+        line["profiled_wall_ms_rank0"] = prof["wall_ms"]
+        line["top_device_ops_rank0"] = prof["top_device_ops"]
+    return line
+
+
+def lms_dryrun_counts() -> dict:
+    """The dry-run's per-step collective bytes of 13a, 13b and 13d's
+    steps on their meshes (`launch.dryrun.count_collectives`)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+    axes = ("data", "model")
+    arch, batch, seq, _ = LMS_TRAIN
+    _, _, b, s = LMS_F32
+    return {
+        "13a": dryrun.count_collectives(configs.get(arch), "train", batch,
+                                        seq, abstract_mesh((1, 4), axes),
+                                        chunk=min(seq, 2048)),
+        "13b": dryrun.count_collectives(lms_f32_cfg(), "train", b, s,
+                                        abstract_mesh(LMS_F32_MESH, axes),
+                                        chunk=s),
+        "13d": dryrun.count_collectives(
+            lms_serve_cfg(), "decode", LMS_SERVE[1], sum(LMS_SERVE[2:]),
+            abstract_mesh((1, 4), axes))}
+
+
+def lms_one_process(dev) -> tuple:
+    """The one-process runs phase 13 holds the ranks against: 13a's
+    launcher records, 13b's metrics, 13d's bf16 and float32 serving."""
+    import gc
+
+    import torch
+    from repro_torch.launch import serve, train
+    ref_records = []
+    train.main(lms_train_argv(), records=ref_records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_b = lms_f32_steps(None, dev)
+    ref_b = {k: ref_b[k] for k in ("m0", "loss1", "ms")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, batch, prompt, gen = LMS_SERVE
+    ref_d = serve.serve_lm(lms_serve_cfg(), batch, prompt, gen,
+                           device="cuda")
+    ref_d = {k: ref_d[k] for k in ("ids", "prefill_ms",
+                                   "decode_ms_per_token", "tokens_per_s")}
+    ref_d32 = serve.serve_lm(lms_f32_cfg(), batch, prompt,
+                             LMS_SERVE_F32_GEN, device="cuda")["ids"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref_records, ref_b, ref_d, ref_d32
+
+
+def phase_lm_sharded(dev) -> dict:
+    """Phase 13, the sharded LM step across torch.distributed ranks: four
+    ranks spawned on cuda:0 over gloo under one join deadline (13a-13d,
+    `lms_rank`); they start up while the one-process runs they are held
+    against use the card, and run once those are done. Checks: 13a losses within 2e-2 relative; 13b loss,
+    grad_norm and the next loss within 1e-4 x max(1, |ref|); 13c bitwise
+    (in the rank); 13d float32 ids equal; every rank's state bytes equal
+    to local_bytes; the bytes each rank counted equal to the dry-run's
+    count of the cell times the steps. One `lm_sharded` line per run."""
+    import gc
+
+    import torch
+    from repro_torch.distributed import process
+    t0 = time.perf_counter()
+    card = card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_lms_")
+    go = os.path.join(ckpt, "go")
+    try:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            # the ranks start up (imports, their CUDA contexts) while the
+            # one-process runs they are held against use the card alone
+            spawned = pool.submit(process.launch, lms_rank, LMS_RANKS,
+                                  (ckpt, go), timeout_s=LMS_DEADLINE_S)
+            released = "abort"
+            try:
+                ref_records, ref_b, ref_d, ref_d32 = lms_one_process(dev)
+                released = "run"
+            finally:
+                with open(go + ".tmp", "w") as f:
+                    f.write(released)
+                os.replace(go + ".tmp", go)
+            t_ref = time.perf_counter() - t0
+            t_spawn = time.perf_counter()
+            counted = pool.submit(lms_dryrun_counts)  # on the host, meanwhile
+            ranks = spawned.result()
+            dry = counted.result()
+            t_spawn = time.perf_counter() - t_spawn
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    lms_report(card, ranks, (ref_records, ref_b, ref_d, ref_d32), dry)
+    log(f"phase 13 lm sharded: {time.perf_counter() - t0:.1f} s "
+        f"(one-process runs {t_ref:.1f} s, the spawn {t_spawn:.1f} s)")
+    return {"spawn_s": t_spawn}
+
+
+def lms_report(card: str, ranks: list, refs: tuple, dry: dict) -> None:
+    """Phase 13's checks in the parent and its `lm_sharded` lines: the
+    ranks' results against the one-process runs `refs` and the dry-run's
+    per-step counts `dry`."""
+    ref_records, ref_b, ref_d, ref_d32 = refs
+    for r in ranks:
+        for p in ("13a", "13b", "13d"):
+            check(r[p]["state_bytes"] == r[p]["local_bytes"],
+                  f"{p}: a rank holds {r[p]['state_bytes']} bytes, "
+                  f"local_bytes {r[p]['local_bytes']}")
+    # 13a
+    _, tb, ts, n_steps = LMS_TRAIN
+    a0 = ranks[0]["13a"]
+    check(a0["mesh"] == [1, 4], f"13a: plan_mesh gave {a0['mesh']}")
+    losses = [[x["loss"] for x in r["13a"]["records"]] for r in ranks]
+    want = [x["loss"] for x in ref_records]
+    rel = max(abs(g - w) / abs(w) for got in losses
+              for g, w in zip(got, want))
+    check(all(len(x) == len(want) for x in losses) and rel <= 2e-2,
+          f"13a: losses {losses} against the one-process {want}")
+    for p, n in (("13a", n_steps), ("13b", 2), ("13d", sum(LMS_SERVE[2:]))):
+        got, cnt = ranks[0][p]["counter"]["bytes"], dry[p]
+        check(all(r[p]["counter"]["bytes"] == got for r in ranks)
+              and all(got[k] == n * cnt[k] for k in cnt),
+              f"{p}: counted {got} over {n} steps, the dry-run's "
+              f"{cnt} a step")
+    step_ms = [r["13a"]["records"][-1]["ms"] for r in ranks]
+    log("lm_sharded " + json.dumps(lms_line("13a", card, ranks, {
+        "arch": LMS_TRAIN[0], "batch": tb, "seq": ts, "steps": n_steps,
+        "dryrun_coll_bytes_per_step": dry["13a"],
+        "dtype": "bfloat16", "losses": losses[0],
+        "one_process_losses": want, "loss_rel_err": rel,
+        "ms_per_step_per_rank": step_ms,
+        "tokens_per_s": tb * ts / (max(step_ms) / 1e3),
+        "one_process_ms": ref_records[-1]["ms"],
+        "one_process_tokens_per_s": tb * ts / (ref_records[-1]["ms"] / 1e3),
+        "main_s_per_rank": [r["13a"]["main_s"] for r in ranks]})))
+    # 13b
+    b0 = ranks[0]["13b"]
+    for k in ("loss", "grad_norm", "ce"):
+        check(lms_close(b0["m0"][k], ref_b["m0"][k], 1e-4),
+              f"13b: {k} {b0['m0'][k]} against {ref_b['m0'][k]}")
+    check(lms_close(b0["loss1"], ref_b["loss1"], 1e-4),
+          f"13b: next loss {b0['loss1']} against {ref_b['loss1']}")
+    _, layers, bb, bs = LMS_F32
+    log("lm_sharded " + json.dumps(lms_line("13b", card, ranks, {
+        "arch": LMS_F32[0], "layers": layers, "batch": bb, "seq": bs,
+        "dryrun_coll_bytes_per_step": dry["13b"],
+        "dtype": "float32", "metrics": b0["m0"], "next_loss": b0["loss1"],
+        "one_process_metrics": ref_b["m0"],
+        "one_process_next_loss": ref_b["loss1"],
+        "ms_per_step_per_rank": [r["13b"]["ms"][-1] for r in ranks],
+        "tokens_per_s": bb * bs / (max(r["13b"]["ms"][-1]
+                                       for r in ranks) / 1e3),
+        "one_process_ms": ref_b["ms"][-1]})))
+    # 13c
+    c0 = ranks[0]["13c"]
+    check(c0["bitwise"], "13c: restored state differs")
+    log("lm_sharded " + json.dumps({
+        "phase": "13c", "card": card, "from_mesh": list(LMS_F32_MESH),
+        "to_mesh": list(LMS_CKPT_TO), "leaves": c0["leaves"],
+        "bitwise": True, "save_s_per_rank": [r["13c"]["save_s"]
+                                             for r in ranks],
+        "restore_s_per_rank": [r["13c"]["restore_s"] for r in ranks],
+        "wall_s_per_rank": [r["13c"]["wall_s"] for r in ranks]}))
+    # 13d
+    arch, batch, prompt, gen = LMS_SERVE
+    d0 = ranks[0]["13d"]
+    check(all(r["13d"]["ids"] == d0["ids"] for r in ranks)
+          and all(r["13d"]["ids_f32"] == d0["ids_f32"] for r in ranks),
+          "13d: the ranks returned different ids")
+    check(d0["ids_f32"] == ref_d32.tolist(),
+          f"13d: float32 ids {d0['ids_f32']} against the one-process "
+          f"{ref_d32.tolist()}")
+    same = [x == y for gr, wr in zip(d0["ids"], ref_d["ids"].tolist())
+            for x, y in zip(gr, wr)]
+    log("lm_sharded " + json.dumps(lms_line("13d", card, ranks, {
+        "arch": arch, "layers": LMS_SERVE_LAYERS, "batch": batch,
+        "prompt_len": prompt, "gen": gen,
+        "dryrun_coll_bytes_per_step": dry["13d"],
+        "dtype": "bfloat16",
+        **{k: d0[k] for k in ("prefill_ms", "decode_ms_per_token",
+                              "tokens_per_s")},
+        "one_process": {k: ref_d[k] for k in ("prefill_ms",
+                                              "decode_ms_per_token",
+                                              "tokens_per_s")},
+        "bf16_ids_equal_share": sum(same) / len(same),
+        "f32_layers": LMS_F32[1], "f32_gen": LMS_SERVE_F32_GEN,
+        "f32_ids_equal": True})))
+
+
 def time_kernels() -> None:
     """K1, K2 and K3 per paper op at 512^3 x 8, as one JSON line.
 
@@ -3907,6 +4440,7 @@ def main() -> int:
         phase_lm(dev)
         phase_lm_serve(dev)
         multi = phase_multiprocess(dist)
+        phase_lm_sharded(dev)
     finally:
         shutil.rmtree(plans, ignore_errors=True)
     k = rows[SERVE_OP]

@@ -18,10 +18,14 @@ each leaf wherever `placement_fn` says, which is what makes an elastic
 rescale (`distributed.elastic`) a restore onto another mesh.
 
 Under a process group (`distributed.process`) the tree is the global one
-every rank holds (`stepper.run_distributed` returns it on every rank):
-rank 0 alone writes it, and every rank waits at a barrier until it is
-committed. `restore` runs on every rank, so a run checkpointed at one
-world size resumes at another.
+every rank holds (`stepper.run_distributed` returns it on every rank), or,
+given its `shardings` (a sharded LM train state), this rank's blocks,
+which `save` first gathers into full logical arrays on every rank
+(`training.sharding.gather`): rank 0 alone writes it, and every rank
+waits at a barrier until it is committed. `restore` runs on every rank
+and, given `shardings`, cuts each rank's block from the full arrays
+(`training.sharding.shard`), so a run checkpointed at one world size or
+mesh resumes at another, or in one process.
 """
 
 from __future__ import annotations
@@ -77,9 +81,23 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def save(directory: str, step: int, tree, *, keep_last: int = 3) -> str:
+def _whole(tree, shardings):
+    """`tree` with every block gathered whole (the tree itself without
+    `shardings`)."""
+    if shardings is None:
+        return tree
+    from repro_torch.training import sharding
+
+    return sharding.gather(tree, shardings)
+
+
+def save(directory: str, step: int, tree, *, keep_last: int = 3,
+         shardings=None) -> str:
     """Synchronous atomic checkpoint of `tree` at `step` (under a process
-    group: written by rank 0, committed for every rank on return)."""
+    group: written by rank 0, committed for every rank on return). With
+    `shardings` (a same-structured tree of `NamedSharding`s) `tree` holds
+    this rank's blocks, gathered whole first on every rank."""
+    tree = _whole(tree, shardings)
     if process.process_count() > 1:
         final = os.path.join(directory, f"step_{step:010d}")
         if process.process_index() == 0:
@@ -144,13 +162,17 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore(directory: str, tree_like, *, step: int | None = None,
-            placement_fn: Callable[[str, Any], Any] | None = None):
+            placement_fn: Callable[[str, Any], Any] | None = None,
+            shardings=None):
     """Restore a checkpoint into the structure of `tree_like`.
 
     ``placement_fn(name, leaf)`` gives each leaf's device (e.g. a mesh
     other than the one that saved it); by default a leaf lands on the
-    device of the matching tensor in `tree_like`, else on the CPU.
-    Returns ``(step, tree)``.
+    device of the matching tensor in `tree_like`, else on the CPU. With
+    `shardings` (a tree of `NamedSharding`s shaped as `tree_like`) each
+    leaf is cut to this rank's block on a process mesh and goes, by
+    default, to `sharding.device_for` its sharding. Returns ``(step,
+    tree)``.
     """
     step = latest_step(directory) if step is None else step
     if step is None:
@@ -165,14 +187,25 @@ def restore(directory: str, tree_like, *, step: int | None = None,
     missing = [n for n, _ in pairs if n not in arrays]
     if missing:
         raise ValueError(f"checkpoint at step {step} missing leaves {missing}")
+    blocks = {}
+    if shardings is not None:
+        from repro_torch.training import sharding
+
+        blocks = dict(tree_paths(shardings))
     leaves = {}
     for name, leaf in pairs:
+        sh = blocks.get(name)
         if placement_fn is not None:
             device = placement_fn(name, leaf)
+        elif sh is not None:
+            device = sharding.device_for(sh)
         else:
             device = (leaf.device if isinstance(leaf, torch.Tensor)
                       else "cpu")
-        leaves[name] = _from_numpy(arrays[name], dtypes[name]).to(device)
+        t = _from_numpy(arrays[name], dtypes[name])
+        if sh is not None and sharding.is_process_mesh(sh.mesh):
+            t = sharding.shard(t, sh)
+        leaves[name] = t.to(device)
     return step, _rebuild(tree_like, leaves)
 
 
@@ -189,10 +222,12 @@ class AsyncCheckpointer:
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
-    def save(self, step: int, tree) -> None:
+    def save(self, step: int, tree, shardings=None) -> None:
         """Snapshot `tree` to host and write the checkpoint off-thread
-        (rank 0's thread under a process group)."""
+        (rank 0's thread under a process group); with `shardings`, `tree`
+        holds this rank's blocks, gathered whole first on every rank."""
         self.wait_pending()
+        tree = _whole(tree, shardings)
         if process.process_index() != 0:
             return
         # snapshot on the caller's thread: the next step may overwrite the

@@ -38,12 +38,20 @@ def plan_mesh(n_devices: int) -> tuple[tuple[int, ...], tuple[str, ...]]:
 def build_mesh(n_devices: int | None = None, devices=None):
     """Build the `plan_mesh` shape over the first `n_devices` of a pool.
 
-    `devices` is the pool (default: the card's devices); it may repeat a
-    device, as ``[cuda:0] * 4`` lets one card host four shards. A shrink
-    takes a prefix of the pool, so it builds a genuinely smaller mesh.
+    `devices` is the pool (default: the card's devices; under a process
+    group of more than one rank, every rank's device, `launch.mesh.
+    rank_devices`, which is the reference's ``build_mesh()`` over every
+    device: 4 ranks give (1, 4)); it may repeat a device, as
+    ``[cuda:0] * 4`` lets one card host four shards. A shrink takes a
+    prefix of the pool, so it builds a genuinely smaller mesh.
     """
-    pool = (launch_mesh.local_devices() if devices is None
-            else list(devices))
+    if devices is None:
+        from repro_torch.distributed import process
+
+        pool = (launch_mesh.rank_devices() if process.process_count() > 1
+                else launch_mesh.local_devices())
+    else:
+        pool = list(devices)
     n = len(pool) if n_devices is None else n_devices
     if n > len(pool):
         raise ValueError(

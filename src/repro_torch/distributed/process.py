@@ -18,23 +18,32 @@ and raises its own error.
 
 `launch` spawns ranks on one host under a deadline (tests, ``chip_smoke.py``):
 a rank that fails, or a deadline that passes, ends every rank.
+
+`axis_group` gives the sharded LM step (`training.spmd`) the sub-group of
+ranks that share every mesh coordinate but one axis's (a mesh row or
+column), created on every rank in one fixed order, once per mesh layout,
+with the group's timeout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import pickle
 import shutil
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 BACKENDS = ("gloo", "nccl")
 DEFAULT_TIMEOUT_S = 300.0
+_TIMEOUT_S = [DEFAULT_TIMEOUT_S]   # the joined group's, for its sub-groups
+_GROUPS: dict = {}                 # mesh layout -> {axes: AxisGroup}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,12 +140,108 @@ def initialize(backend: str, *, rank: int | None = None,
         torch.cuda.set_device(device)
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world_size, timeout=timeout)
+    _TIMEOUT_S[0] = timeout_s
+
+
+def join_torchrun(backend: str | None, device_kind: str = "cuda") -> bool:
+    """Join the group torchrun's environment names when it names more
+    than one rank and none is joined yet (the LM launchers); whether it
+    joined. `backend` is the caller's (required then); under ``nccl``
+    the rank's card is `rank_device`."""
+    if process_count() > 1 or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    if backend is None:
+        raise SystemExit("torchrun started more than one rank: name the "
+                         "process group's backend with --backend gloo|nccl")
+    initialize(backend, device=rank_device(device_kind)
+               if device_kind == "cuda" else None)
+    return True
 
 
 def finalize() -> None:
     """Leave the process group (nothing without one)."""
+    _GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """The ranks that differ from this one only along some mesh axes:
+    `ranks` in coordinate order (row-major over the axes), this rank's
+    `index` among them, and the backend's group (None for one rank)."""
+
+    ranks: tuple[int, ...]
+    index: int
+    group: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+def axis_combos(names) -> list[tuple[str, ...]]:
+    """The axes a mesh of axis `names` has groups along: each axis, and
+    the batch axes ``('pod', 'data')`` together where both exist."""
+    combos = [(n,) for n in names]
+    if "pod" in names and "data" in names:
+        combos.append(("pod", "data"))
+    return combos
+
+
+def mesh_ranks(mesh) -> np.ndarray:
+    """The owning rank of every entry of a mesh of `ProcessDevice`s, in
+    the mesh's shape."""
+    return np.vectorize(lambda d: d.process_index, otypes=[int])(
+        mesh.devices)
+
+
+def axis_group(mesh, axes) -> AxisGroup:
+    """This rank's group along mesh axis `axes` (a name, or a tuple of
+    names whose coordinates combine row-major, as a spec entry's do).
+
+    ``dist.new_group`` is collective over the whole process group, so the
+    first call for a mesh layout creates the groups of every axis and of
+    the batch axes ``('pod', 'data')`` on every rank in one fixed order,
+    each with the joined group's timeout; later calls, for any mesh of the
+    same layout, reuse them. A mesh over more than one rank must hold one
+    entry per rank of the process group."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    ranks = mesh_ranks(mesh)
+    key = (ranks.shape, tuple(ranks.flat), tuple(mesh.axis_names))
+    if key not in _GROUPS:
+        _GROUPS[key] = _make_groups(ranks, tuple(mesh.axis_names))
+    return _GROUPS[key][axes]
+
+
+def _make_groups(ranks: np.ndarray, names: tuple) -> dict:
+    me = process_index()
+    if ranks.size > 1 and sorted(ranks.flat) != list(range(process_count())):
+        raise ValueError(
+            f"a mesh over ranks {sorted(ranks.flat)} must hold each of the "
+            f"{process_count()} ranks of the process group exactly once")
+    where = np.argwhere(ranks == me)
+    if len(where) != 1:
+        raise ValueError(f"rank {me} holds {len(where)} entries of a mesh "
+                         f"over ranks {ranks.tolist()}; it must hold one")
+    pos = tuple(int(i) for i in where[0])
+    timeout = datetime.timedelta(seconds=_TIMEOUT_S[0])
+    out = {}
+    for combo in axis_combos(names):
+        dims = [names.index(n) for n in combo]
+        rest = [i for i in range(ranks.ndim) if i not in dims]
+        rows = np.transpose(ranks, rest + dims).reshape(
+            -1, math.prod(ranks.shape[i] for i in dims))
+        mine_at = int(np.ravel_multi_index(
+            tuple(pos[i] for i in dims),
+            tuple(ranks.shape[i] for i in dims)))
+        for row in rows:
+            row = tuple(int(r) for r in row)
+            group = (dist.new_group(list(row), timeout=timeout)
+                     if len(row) > 1 else None)
+            if me in row:
+                out[combo] = AxisGroup(row, mine_at, group)
+    return out
 
 
 def barrier() -> None:

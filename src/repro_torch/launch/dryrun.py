@@ -22,8 +22,12 @@ section 6 of the port's REPRODUCTION.md.
 Not ported: XLA's memory analysis, cost analysis and HLO collective
 schedule (`repro.launch.roofline.collective_bytes`). A stencil cell's
 collective bytes are its interior shard's halo bytes a super-step, what
-the multi-process stepper's carrier sends; an LM cell's are 0 until the
-sharded LM step (ROADMAP.md queue 1, item 14a).
+the multi-process stepper's carrier sends. An LM cell's are what one
+device's sharded step issues (`count_collectives`: the same calls of
+`training.spmd` that the ranks make, on meta blocks, counted and not
+run), by kind; Mamba2 and MoE cells, and long-context decode (batch 1),
+have none counted until the sharded step splits them (ROADMAP.md queue
+1, item 14a2).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from repro_torch.models import lm
 from repro_torch.models.params import tree_sds
 from repro_torch.optim.optimizers import tree_map
 from repro_torch.training import sharding as shd
+from repro_torch.training import spmd
 from repro_torch.training import steps
 
 MESHES = {"pod": False, "multipod": True}
@@ -137,6 +142,53 @@ def count_step(cfg, kind: str, batch: int, seq: int, *, chunk: int = 2048,
     return float(flops.get_total_flops()), float(nbytes.bytes)
 
 
+def _meta_blocks(sds_tree, shardings):
+    """Meta tensors of the blocks one device holds (`local_shape`)."""
+    return tree_map(lambda s, sh: torch.empty(
+        shd.local_shape(s.shape, sh.spec, sh.mesh), dtype=s.dtype,
+        device="meta"), sds_tree, shardings)
+
+
+def count_collectives(cfg, kind: str, batch: int, seq: int, mesh, *,
+                      chunk: int = 2048, accum: int = 1) -> dict:
+    """Per-device operand bytes by kind (`training.spmd.KINDS`) of one
+    `kind` step at global `batch` x `seq` on `mesh`, an abstract mesh:
+    the sharded step of the mesh's first device (`spmd.layout_of` gives
+    a virtual layout there) run on meta blocks, its collectives counted
+    and not run. These are the calls every rank of a process mesh of that
+    shape issues, and the bytes its `spmd.COUNTER` counts. Raises
+    NotImplementedError where the sharded step refuses the config (or
+    long-context decode)."""
+    inputs = steps.abstract_inputs(cfg, kind, batch, seq)
+    with spmd.counting() as counter:
+        if kind == "train":
+            state_sds, sh_fn = steps.train_state_specs(cfg)
+            _, train_step = steps.make_train_step(cfg, chunk=chunk,
+                                                  accum=accum, mesh=mesh)
+            train_step(_meta_blocks(state_sds, sh_fn(mesh)),
+                       _meta(inputs["batch"]))
+        else:
+            specs = lm.param_specs(cfg)
+            params = _meta_blocks(tree_sds(specs),
+                                  shd.param_shardings(mesh, specs))
+            if kind == "prefill":
+                steps.make_prefill_step(cfg, chunk=chunk, mesh=mesh)(
+                    params, _meta(inputs["batch"]))
+            else:
+                lay = spmd.layout_of(mesh)
+                if batch == 1 and lay.size(lay.batch) > 1:
+                    raise NotImplementedError(
+                        "long-context decode (batch 1, the KV sequence "
+                        "over 'data') waits for ROADMAP.md queue 1, item "
+                        "14a2")
+                cache = _meta_blocks(inputs["cache"], shd.cache_shardings(
+                    mesh, cfg, inputs["cache"], seq_shard=False))
+                tokens = spmd.local_rows(
+                    lay, {"tokens": _meta(inputs["tokens"])})["tokens"]
+                steps.make_serve_step(cfg, mesh=mesh)(params, cache, tokens)
+    return dict(counter.bytes)
+
+
 def probe_lm_cell(cfg, shape_name: str, mesh, *, chunk: int = 2048,
                   accum: int = 1) -> dict:
     """Per-device (flops, bytes, collective bytes) of the cell's step.
@@ -144,14 +196,26 @@ def probe_lm_cell(cfg, shape_name: str, mesh, *, chunk: int = 2048,
     The reference compiles small-L unrolled probes and extrapolates,
     because XLA's cost analysis counts a loop body once. Meta tensors cost
     no memory, so the port counts the whole depth, every layer run, and
-    divides by the mesh's device count. Raises NotImplementedError where
-    an operator of the step has no meta kernel."""
+    divides by the mesh's device count. The collective bytes are
+    `count_collectives`' (none where the sharded step refuses the cell;
+    ``coll_note`` says why). Raises NotImplementedError where an operator
+    of the step has no meta kernel."""
     n_dev = mesh.devices.size
     s = SHAPES[shape_name]
     f, b = count_step(cfg, s["kind"], s["global_batch"], s["seq_len"],
                       chunk=chunk, accum=accum)
+    try:
+        coll = count_collectives(cfg, s["kind"], s["global_batch"],
+                                 s["seq_len"], mesh, chunk=chunk,
+                                 accum=accum)
+        note = ""
+    except NotImplementedError as e:
+        coll = {}
+        note = (" collectives not counted: "
+                f"{str(e).splitlines()[0][-110:]}")
     return {"flops": f / n_dev, "bytes": b / n_dev,
-            "coll": {k: 0.0 for k in roofline.COLLECTIVES}}
+            "coll": {k: float(coll.get(k, 0)) for k in roofline.COLLECTIVES},
+            "coll_note": note}
 
 
 def count_lm_cell(cfg, shape_name: str, mesh, *, chunk: int = 2048,
@@ -185,11 +249,12 @@ def count_lm_cell(cfg, shape_name: str, mesh, *, chunk: int = 2048,
     try:
         probed = probe_lm_cell(cfg, shape_name, mesh, chunk=chunk,
                                accum=accum)
-        notes += f" counted/{n_dev}dev"
+        notes += f" counted/{n_dev}dev" + probed["coll_note"]
     except NotImplementedError as e:
         probed = None
         notes += (" model-flops (no meta kernel: "
-                  f"{str(e).splitlines()[0][:80]})")
+                  f"{str(e).splitlines()[0][:80]}); collectives not "
+                  "counted")
     return probed, mflops, mbytes, arg_bytes, notes
 
 
@@ -280,6 +345,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
             flops, counted_bytes = mflops / MODEL_FLOPS_RATIO / n_dev, None
         else:
             flops, counted_bytes = probed["flops"], probed["bytes"]
+            coll = probed["coll"]
     res = roofline.analyze_counts(
         arch=arch, shape=shape_name, mesh_name=mesh_name(multi_pod),
         n_devices=n_dev, flops_per_device=flops,

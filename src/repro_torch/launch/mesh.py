@@ -10,7 +10,10 @@ device-to-device copies on that card (peer copies over NVLink where the
 devices differ). Under a process group (`distributed.process`) the
 entries are `ProcessDevice`s, each owned by one rank: `make_process_mesh`
 all-gathers every rank's local devices into rows, one row per rank, and
-`make_mesh` takes any layout of them over the ranks.
+`make_mesh` takes any layout of them over the ranks. `rank_mesh` lays one
+device a rank over any shape, rank order row-major: the sharded LM
+step's mesh (`training.spmd`), one rank per mesh device, as the
+reference's mesh holds one device per entry.
 
 The LM half: `production_layout` and `make_production_mesh` (16x16
 ``('data', 'model')``, or 2x16x16 with ``'pod'`` in front), `batch_axes` and `model_axis`, which
@@ -173,6 +176,28 @@ def make_process_mesh(devices=None) -> Mesh:
     rows = process_grid(tagged)
     flat = [getattr(d, "device", d) for row in rows for d in row]
     return make_mesh((len(rows), len(rows[0])), ("data", "model"), flat)
+
+
+def rank_devices(device=None) -> list:
+    """Every rank's device, as `ProcessDevice`s in rank order (collective
+    under a process group): this rank's is `process.rank_device` of
+    `device`'s kind (default: the card where there is one, else the
+    CPU), or `device` itself when it names an index."""
+    if device is None:
+        kind = "cuda" if torch.cuda.is_available() else "cpu"
+        dev = process.rank_device(kind)
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = process.rank_device("cuda")
+    mine = ProcessDevice(process.process_index(), 0, dev)
+    return process.all_gather_object(mine)
+
+
+def rank_mesh(shape, axes=("data", "model"), device=None) -> Mesh:
+    """A mesh of `shape` with one entry per rank, ranks in row-major
+    order (`rank_devices`); its size must be the process count."""
+    return make_mesh(shape, axes, rank_devices(device))
 
 
 def batch_axes(mesh: Mesh) -> tuple[str, ...]:

@@ -477,9 +477,13 @@ def dryrun_section(dr: list[dict]) -> list[str]:
     out.append("HBM bytes/s, NVLink's one-way rate). A girih cell's "
                "collective bytes are its interior")
     out.append("shard's halo slabs a super-step, what the multi-process "
-               "carrier sends; an LM cell's")
-    out.append("collective term is 0 until the sharded LM step "
-               "(ROADMAP.md queue 1, item 14a).")
+               "carrier sends; an LM cell's are the")
+    out.append("operand bytes by kind that one device's sharded step "
+               "issues (`training.spmd`, its collectives")
+    out.append("counted on meta blocks, not run); Mamba2 and MoE cells and "
+               "long-context decode have none")
+    out.append("counted until the sharded step splits them (ROADMAP.md "
+               "queue 1, item 14a2).")
     out.append("")
     out.append("### 16x16 pod (256 devices)")
     out.append("")

@@ -15,9 +15,11 @@ and writes, and `analyze_counts` prices them against the device spec
 term: `core.models.roofline`). A stencil (girih) cell's collective bytes
 are what the multi-process stepper's carrier sends from an interior shard
 in one super-step (`distributed.stepper.interior_halo_bytes`, the
-reference's ``collective-permute``). An LM cell's stay 0 until the
-sharded LM step over distinct cards (ROADMAP.md queue 1, item 14a) has
-collectives of its own to count.
+reference's ``collective-permute``). An LM cell's are what one device
+of the sharded LM step issues in the cell's step, by kind
+(`launch.dryrun.count_collectives`: `training.spmd`'s calls on meta
+blocks, counted and not run), in the reference's convention (an
+operand's bytes).
 """
 
 from __future__ import annotations

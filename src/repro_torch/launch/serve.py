@@ -9,12 +9,14 @@ stencil request-queue server on the port's MWD kernel.
       --max-batch 2
 
 The port of `repro.launch.serve`. The LM half (no ``--stencil``): the
-one-device mesh of the card ``--device`` names (`elastic.build_mesh`;
-a split over cards waits for ROADMAP.md queue 1, item 14a), the seed-0
-parameters of ``--arch`` (reduced unless ``--no-reduced``) placed with
-`training.sharding.place`, numpy-seeded prompts, `prefill_into_cache`
-(the prompt stepped through the decode path), then a greedy decode loop
-of ``--gen`` tokens that starts from the prompt's last token, as the
+one-device mesh of the card ``--device`` names (`elastic.build_mesh`), or,
+under a process group of more than one rank, `plan_mesh` over every
+rank's device, the seed-0 parameters of ``--arch`` (reduced unless
+``--no-reduced``) placed with `training.sharding.place` (a rank's blocks
+on a process mesh, and its blocks of the cache by `cache_shardings`),
+numpy-seeded prompts (a rank takes its rows), `prefill_into_cache` (the
+prompt stepped through the decode path), then a greedy decode loop of
+``--gen`` tokens that starts from the prompt's last token, as the
 reference's does. No stencil kernel runs on it: the products are
 `torch.matmul`.
 
@@ -55,17 +57,19 @@ from repro_torch.core import registry as reg
 from repro_torch.core import specs as devspecs
 from repro_torch.core import stencils as stc
 from repro_torch.device import resolve_device
-from repro_torch.distributed import elastic
+from repro_torch.distributed import elastic, process
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import telemetry as tlm
 from repro_torch.models import lm
 from repro_torch.models.params import tree_init
 from repro_torch.training import sharding as shd
+from repro_torch.training import spmd
 from repro_torch.training import steps as tsteps
 
 
 def prefill_into_cache(cfg, params, tokens, gen: int,
-                       cache_len: int | None = None):
+                       cache_len: int | None = None, *, mesh=None):
     """Prefill by stepping the decode path (simple and exact).
 
     The cache, on the prompt's device, is sized for the WHOLE request:
@@ -73,7 +77,10 @@ def prefill_into_cache(cfg, params, tokens, gen: int,
     caller-provided `cache_len` is guarded against overflow instead of
     trusted, with the same ``max(gen, 1)`` rule as the default sizing,
     because decode reads one slot past the prompt even when gen=0.
-    Returns ``(last logits (B, 1, vocab), cache)``.
+    Under a process `mesh` the `params` are this rank's blocks, `tokens`
+    the global prompts, of which the rank steps its rows, and the cache
+    is the rank's blocks by `cache_shardings`. Returns ``(last logits
+    (B, 1, vocab), cache)`` (this rank's rows and vocab columns).
     """
     if gen < 0:
         raise ValueError(f"gen must be >= 0, got {gen}")
@@ -83,8 +90,21 @@ def prefill_into_cache(cfg, params, tokens, gen: int,
     if cache_len < s + max(gen, 1):
         raise ValueError(f"cache_len={cache_len} cannot hold the "
                          f"{s}-token prompt plus {max(gen, 1)} decode slots")
-    cache = lm.init_cache(cfg, b, cache_len, device=tokens.device)
-    serve = tsteps.make_serve_step(cfg)
+    layout = spmd.layout_of(mesh) if mesh is not None else None
+    if layout is None:
+        cache = lm.init_cache(cfg, b, cache_len, device=tokens.device)
+    else:
+        if b == 1 and layout.size(layout.batch) > 1:
+            raise NotImplementedError(
+                "long-context decode (batch 1, the KV sequence over "
+                "'data') across ranks waits for ROADMAP.md queue 1, "
+                "item 14a2")
+        spec = lm.cache_spec(cfg, b, cache_len)
+        cache = shd.place(lm.init_cache(cfg, b, cache_len, device="cpu"),
+                          shd.cache_shardings(mesh, cfg, spec,
+                                              seq_shard=b == 1))
+        tokens = spmd.local_rows(layout, {"tokens": tokens})["tokens"]
+    serve = tsteps.make_serve_step(cfg, mesh=mesh)
     logits = None
     for i in range(s):
         _, logits, cache = serve(params, cache, tokens[:, i:i + 1])
@@ -97,22 +117,33 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve_lm(cfg, batch: int, prompt_len: int, gen: int,
-             device=None) -> dict:
-    """The LM decode loop: seed-0 parameters placed on the one-device
-    mesh of `device`, numpy-seeded prompts (``default_rng(0)``),
-    `prefill_into_cache`, then `gen` greedy steps from the prompt's last
-    token. Prints the reference's two lines. Returns ``prefill_ms``,
-    ``decode_ms`` (one host-clock time a step, each ending in a
-    synchronize), ``decode_ms_per_token`` (their median),
+             device=None, *, mesh=None) -> dict:
+    """The LM decode loop: seed-0 parameters placed on the mesh,
+    numpy-seeded prompts (``default_rng(0)``), `prefill_into_cache`, then
+    `gen` greedy steps from the prompt's last token. The mesh is `mesh`
+    (a process mesh), else, under a process group of more than one rank,
+    `plan_mesh` over every rank's device, else the one-device mesh of
+    `device`; on a process mesh each rank holds its blocks and steps its
+    rows. Prints the reference's two lines (rank 0). Returns
+    ``prefill_ms``, ``decode_ms`` (one host-clock time a step, each ending
+    in a synchronize), ``decode_ms_per_token`` (their median),
     ``tokens_per_s`` (batch x gen over the loop's time), ``ids`` (the
-    generated ``(batch, gen)`` int32 ids on the host), and the state the
-    loop left: ``cfg``, ``params``, ``cache`` and ``next`` (the last
-    step's tokens, what a further step would take)."""
+    generated ``(batch, gen)`` int32 ids on the host, every rank's rows),
+    and the state the loop left: ``cfg``, ``params``, ``cache`` and
+    ``next`` (the last step's tokens, what a further step would take;
+    this rank's blocks and rows on a process mesh)."""
     if not cfg.supports_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode")
     dev = resolve_device(device)
-    # the one card `device` names: a split over cards waits for item 14a
-    mesh = elastic.build_mesh(devices=[dev])
+    if mesh is None and process.process_count() > 1:
+        dev = process.rank_device(dev.type)
+        mesh = elastic.build_mesh(devices=launch_mesh.rank_devices(dev))
+    pmesh = mesh
+    if mesh is None:
+        mesh = elastic.build_mesh(devices=[dev])
+    else:
+        dev = shd.device_for(shd.NamedSharding(mesh, ()))
+    layout = spmd.layout_of(pmesh) if pmesh is not None else None
     specs = lm.param_specs(cfg)
     params = shd.place(tree_init(specs, seed=0, device="cpu"),
                        shd.param_shardings(mesh, specs))
@@ -123,12 +154,14 @@ def serve_lm(cfg, batch: int, prompt_len: int, gen: int,
 
     _sync(dev)
     t0 = time.perf_counter()
-    _, cache = prefill_into_cache(cfg, params, prompts, gen)
+    _, cache = prefill_into_cache(cfg, params, prompts, gen, mesh=pmesh)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
-    serve = tsteps.make_serve_step(cfg)
+    serve = tsteps.make_serve_step(cfg, mesh=pmesh)
     toks = prompts[:, -1:]
+    if layout is not None:
+        toks = spmd.local_rows(layout, {"tokens": toks})["tokens"]
     out, step_s = [], []
     for _ in range(gen):
         t0 = time.perf_counter()
@@ -136,14 +169,19 @@ def serve_lm(cfg, batch: int, prompt_len: int, gen: int,
         _sync(dev)
         step_s.append(time.perf_counter() - t0)
         out.append(toks)
-    ids = (torch.cat(out, dim=1).cpu() if out
-           else torch.zeros((batch, 0), dtype=torch.int32))
+    ids = (torch.cat(out, dim=1) if out
+           else torch.zeros((toks.shape[0], 0), dtype=torch.int32,
+                            device=dev))
+    if layout is not None:
+        ids = spmd.all_gather(layout, layout.batch, ids, 0, count=False)
+    ids = ids.cpu()
     t_gen = sum(step_s)
     tput = batch * gen / t_gen if t_gen else 0.0
-    print(f"prefill {batch}x{prompt_len} in {t_prefill*1e3:.0f}ms; "
-          f"generated {gen} tokens/seq at {tput:.1f} tok/s "
-          f"(batch={batch})")
-    print("sample token ids:", ids[0][:16].tolist())
+    if process.process_index() == 0:
+        print(f"prefill {batch}x{prompt_len} in {t_prefill*1e3:.0f}ms; "
+              f"generated {gen} tokens/seq at {tput:.1f} tok/s "
+              f"(batch={batch})")
+        print("sample token ids:", ids[0][:16].tolist())
     return {"arch": cfg.name, "device": str(dev), "mesh": mesh.shape,
             "batch": batch, "prompt_len": prompt_len, "gen": gen,
             "prefill_ms": t_prefill * 1e3,
@@ -553,6 +591,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
+    ap.add_argument("--backend", choices=process.BACKENDS, default=None,
+                    help="LM: the process group's backend under torchrun "
+                         "with more than one rank (required there)")
     ap.add_argument("--registry", default=None,
                     help=f"plan registry path (default ${reg.ENV_VAR} or "
                          f"{reg.DEFAULT_PATH})")
@@ -578,8 +619,14 @@ def main(argv=None) -> dict:
         cfg = configs.get(args.arch)
         if args.reduced:
             cfg = configs.reduced(cfg)
-        return serve_lm(cfg, args.batch, args.prompt_len, args.gen,
-                        device=args.device)
+        joined = process.join_torchrun(args.backend,
+                                       resolve_device(args.device).type)
+        try:
+            return serve_lm(cfg, args.batch, args.prompt_len, args.gen,
+                            device=args.device)
+        finally:
+            if joined:
+                process.finalize()
     grid = ([tuple(int(x) for x in g.split(","))
              for g in args.grid.split(";")] if args.grid else None)
     if grid and len(grid) == 1:

@@ -1,12 +1,16 @@
 """Activation sharding constraints (MaxText-style logical activation axes).
 
 The port of `repro.models.common`. The reference pins activations to mesh
-axes with ``with_sharding_constraint`` and drops the axes its mesh lacks.
-The port runs one process that holds every tensor whole on one device
-(`training.sharding.place` refuses a real split until the sharded LM
-step, ROADMAP.md queue 1 item 14a), so `constrain` is the identity: the
-model code keeps the reference's call sites and their logical axes, and a
-sharded activation layout has one place to go.
+axes with ``with_sharding_constraint`` and drops the axes its mesh lacks,
+and GSPMD derives the collectives from those layouts. The port states the
+layouts where they are made instead: the sharded LM step
+(`training.spmd`) holds each rank's blocks (`training.sharding.place`),
+gathers parameters along 'data' inside each block (`spmd.gather_data`),
+and splits heads, the MLP's width and the vocab over 'model' in
+`models.layers` and `models.lm` (`spmd.enter_model`,
+`spmd.reduce_model`, the vocab-parallel lookup and loss). So `constrain`
+is the identity: the model code keeps the reference's call sites and
+their logical axes as documentation of the layout at each point.
 """
 
 from __future__ import annotations

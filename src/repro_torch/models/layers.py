@@ -10,6 +10,15 @@ are widened, so every product is exact and sums run in float32), masked
 positions take ``-1e30`` as the reference's do, and the weights go back to
 the activation dtype before the value product. The caller wraps each block
 in activation checkpointing (remat).
+
+Under a sharded step (`training.spmd`) the weights are this rank's blocks,
+whole along 'data': where 'model' splits the heads (or the MLP's hidden
+width) the block runs on the rank's heads, column-parallel in and
+row-parallel out, its input through `spmd.enter_model` and its output
+through `spmd.reduce_model`. kv heads that do not split while the query
+heads do are computed whole and each rank reads the ones its query heads
+group with (global head h with kv head h // (H / Hkv)). A split is read
+from the blocks' shapes, so one process runs the code unchanged.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as C
 from repro_torch.models.params import ParamSpec
+from repro_torch.training import spmd
 
 F32 = torch.float32
 MASKED = -1e30
@@ -61,13 +71,21 @@ def nonlinearity(act: str):
     return gelu if act == "gelu" else F.silu
 
 
-def mlp(p, x, act: str):
+def mlp(p, x, act: str, *, d_ff: int | None = None):
+    """The FFN on `p`'s hidden columns. Under a sharded step a block of
+    fewer than `d_ff` columns (the config's width) is this rank's share:
+    its input enters the 'model' group and its partial outputs are summed
+    over it."""
+    tp = d_ff is not None and p["wo"].shape[0] != d_ff
+    if tp:
+        x = spmd.enter_model(x)
     if act == "gelu2":
         h = C.constrain(gelu(x @ p["wi"]), C.BATCH, None, C.MODEL)
-        return h @ p["wo"]
-    h = nonlinearity(act)(x @ p["wi_gate"]) * (x @ p["wi_up"])
-    h = C.constrain(h, C.BATCH, None, C.MODEL)
-    return h @ p["wo"]
+    else:
+        h = nonlinearity(act)(x @ p["wi_gate"]) * (x @ p["wi_up"])
+        h = C.constrain(h, C.BATCH, None, C.MODEL)
+    y = h @ p["wo"]
+    return spmd.reduce_model(y) if tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -173,23 +191,55 @@ def _project(x, w):
     return (x @ w.reshape(d, -1)).view(b, s, *w.shape[1:])
 
 
+def _kv_for_heads(k, v, cfg: ArchConfig, h0: int, h_loc: int):
+    """The kv heads (dim 2) that query heads ``h0 .. h0 + h_loc - 1`` read,
+    from whole kv heads `k`, `v`: a slice where the heads group evenly, else
+    one kv head per query head."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if h_loc % rep == 0:
+        return (k[:, :, h0 // rep:(h0 + h_loc) // rep],
+                v[:, :, h0 // rep:(h0 + h_loc) // rep])
+    if rep % h_loc == 0:
+        return k[:, :, h0 // rep:h0 // rep + 1], v[:, :, h0 // rep:h0 // rep + 1]
+    idx = torch.arange(h0, h0 + h_loc, device=k.device) // rep
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def attention(p, cfg: ArchConfig, x, positions, kind: str, *,
               cache=None, chunk: int = 2048, sections=()):
     """Full attention block. cache: None (train/prefill) or dict with
-    {"k","v","length"} for single-token decode (returns updated cache)."""
+    {"k","v","length"} for single-token decode (returns updated cache).
+    Under a sharded step whose 'model' axis splits the heads, the block
+    runs on this rank's heads (and its cache on its kv heads, or on all
+    of them where they do not split) and sums its output over 'model'."""
     b, s, _ = x.shape
+    h_loc = p["wq"].shape[1]
+    tp = h_loc != cfg.n_heads           # the heads split over 'model'
+    wk, wv = p["wk"], p["wv"]
+    kv_whole = p["wk"].shape[1] == cfg.n_kv_heads
+    qn, kn = p.get("q_norm"), p.get("k_norm")
+    if tp:
+        # leaves used on this rank's heads only: gradients summed
+        x = spmd.enter_model(x)
+        if kv_whole:
+            wk, wv = spmd.enter_model(wk), spmd.enter_model(wv)
+        if cfg.qk_norm:
+            qn, kn = spmd.enter_model(qn), spmd.enter_model(kn)
     q = C.constrain(_project(x, p["wq"]), C.BATCH, None, C.MODEL, None)
-    k = C.constrain(_project(x, p["wk"]), C.BATCH, None, C.MODEL, None)
-    v = C.constrain(_project(x, p["wv"]), C.BATCH, None, C.MODEL, None)
+    k = C.constrain(_project(x, wk), C.BATCH, None, C.MODEL, None)
+    v = C.constrain(_project(x, wv), C.BATCH, None, C.MODEL, None)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, qn, cfg.norm_eps)
+        k = rmsnorm(k, kn, cfg.norm_eps)
     cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
                            sections)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    h0 = spmd.model_coord() * h_loc
 
     if cache is None:
+        if tp and kv_whole:
+            k, v = _kv_for_heads(k, v, cfg, h0, h_loc)
         # seq_parallel_attn shards the query sequence over the model axis
         # in the reference (no q-chunk loop); one card runs it unchunked
         out = attention_core(q, k, v, kind=kind, window=cfg.window,
@@ -212,12 +262,14 @@ def attention(p, cfg: ArchConfig, x, positions, kind: str, *,
             valid = (kpos >= 0) & (ln - kpos < cfg.window)
         else:
             valid = kpos_abs <= ln
-        rep = cfg.n_heads // cfg.n_kv_heads
-        qr = q.reshape(b, 1, cfg.n_kv_heads, rep, -1)
-        w = _gqa_weights(qr, ck, cfg.resolved_head_dim ** -0.5, valid)
-        out = torch.einsum("bgrqk,bkgd->bqgrd", w, cv)
-        out = out.reshape(b, 1, cfg.n_heads, -1)
+        rk, rv = (_kv_for_heads(ck, cv, cfg, h0, h_loc) if tp and kv_whole
+                  else (ck, cv))
+        g = rk.shape[2]
+        qr = q.reshape(b, 1, g, h_loc // g, -1)
+        w = _gqa_weights(qr, rk, cfg.resolved_head_dim ** -0.5, valid)
+        out = torch.einsum("bgrqk,bkgd->bqgrd", w, rv)
+        out = out.reshape(b, 1, h_loc, -1)
         new_cache = {"k": ck, "v": cv, "length": ln + 1}
 
     y = out.reshape(b, s, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
-    return y, new_cache
+    return (spmd.reduce_model(y) if tp else y), new_cache

@@ -12,6 +12,13 @@ activation checkpointing (`torch.utils.checkpoint`, non-reentrant) when
 ``cfg.remat`` and autograd is recording: the reference's ``jax.checkpoint``.
 The stacked layout (``stacked=True``) loops over its stacks where the
 reference scans.
+
+Under a sharded step (`training.spmd`) the tree holds this rank's blocks:
+each block's parameters are gathered whole along 'data' inside its
+checkpointed function (`spmd.gather_params`, so the backward re-gathers),
+the embedding, the head and the loss run on the rank's vocab rows where
+'model' splits the vocab (`spmd.vocab_lookup`, `spmd.vocab_cross_entropy`)
+and the layers on its heads (`models.layers`).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from repro_torch.models.common import BATCH as BATCH_AXES
 from repro_torch.models.common import constrain as _constrain
 from repro_torch.models.params import ParamSpec, TensorSpec
 from repro_torch.optim.optimizers import tree_map
+from repro_torch.training import spmd
 
 F32 = torch.float32
 
@@ -53,6 +61,14 @@ def _block_specs(cfg: ArchConfig, i: int) -> dict:
     return blk
 
 
+def _top_spec(cfg: ArchConfig, name: str) -> ParamSpec:
+    """The spec of a leaf outside the blocks: embed, head, final_norm."""
+    d, v = cfg.d_model, cfg.vocab_size
+    return {"embed": ParamSpec((v, d), ("vocab", "embed"), cfg.dtype),
+            "head": ParamSpec((d, v), ("embed", "vocab"), cfg.dtype),
+            "final_norm": L.rmsnorm_spec(d)}[name]
+
+
 def _stack_spec(spec: ParamSpec, n: int) -> ParamSpec:
     return ParamSpec((n,) + spec.shape, (None,) + spec.axes, spec.dtype,
                      spec.init_scale)
@@ -62,14 +78,10 @@ def param_specs(cfg: ArchConfig, *, stacked: bool = False) -> dict:
     """stacked=True groups layers into pattern-period stacks (leading dim:
     the repeats) that `forward` loops over; stacked=False unrolls every
     layer."""
-    dt = cfg.dtype
-    d = cfg.d_model
-    tree: dict = {
-        "embed": ParamSpec((cfg.vocab_size, d), ("vocab", "embed"), dt),
-        "final_norm": L.rmsnorm_spec(d),
-    }
+    tree: dict = {"embed": _top_spec(cfg, "embed"),
+                  "final_norm": _top_spec(cfg, "final_norm")}
     if not cfg.tie_embeddings:
-        tree["head"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"), dt)
+        tree["head"] = _top_spec(cfg, "head")
     if not stacked:
         tree["blocks"] = [_block_specs(cfg, i) for i in range(cfg.n_layers)]
         return tree
@@ -104,6 +116,8 @@ def _remat(cfg: ArchConfig, fn, *args):
 def _block_apply(cfg: ArchConfig, i: int, p: dict, x, positions, *,
                  cache=None, chunk: int = 2048):
     kind = cfg.layer_kind(i)
+    if spmd.active() is not None:
+        p = spmd.gather_params(p, _block_specs(cfg, i))
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
     if kind == "mamba":
         mixed, new_cache = M.mamba_block(p["mixer"], cfg, h, cache=cache)
@@ -118,16 +132,30 @@ def _block_apply(cfg: ArchConfig, i: int, p: dict, x, positions, *,
         if cfg.is_moe_layer(i):
             y, aux = MOE.moe_ffn(p["ffn"], cfg, h2, cfg.act)
         else:
-            y = L.mlp(p["ffn"], h2, cfg.act)
+            y = L.mlp(p["ffn"], h2, cfg.act, d_ff=cfg.d_ff)
         x = x + y
     return x, new_cache, aux
+
+
+def _top(cfg: ArchConfig, params: dict, name: str):
+    """Leaf `name` outside the blocks, whole along 'data'."""
+    return spmd.gather_data(params[name], _top_spec(cfg, name))
+
+
+def _lookup(cfg: ArchConfig, params: dict, tokens):
+    """The token embeddings: a vocab-parallel lookup where this rank holds
+    a share of the vocab rows."""
+    embed = _top(cfg, params, "embed")
+    if embed.shape[0] != cfg.vocab_size:
+        return spmd.vocab_lookup(embed, tokens)
+    return embed[tokens.long()]
 
 
 def _embed_and_positions(cfg, params, batch):
     if "embeds" in batch:
         x = batch["embeds"].to(getattr(torch, cfg.dtype))
     else:
-        x = _constrain(params["embed"][batch["tokens"].long()],
+        x = _constrain(_lookup(cfg, params, batch["tokens"]),
                        BATCH_AXES, None, None)
     b, s = x.shape[:2]
     if "positions" in batch:
@@ -141,8 +169,13 @@ def _embed_and_positions(cfg, params, batch):
 
 
 def _head(cfg, params, x):
-    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    """Logits over the vocab columns this rank holds (all of them in one
+    process)."""
+    x = L.rmsnorm(x, _top(cfg, params, "final_norm"), cfg.norm_eps)
+    head = (_top(cfg, params, "embed").T if cfg.tie_embeddings
+            else _top(cfg, params, "head"))
+    if head.shape[1] != cfg.vocab_size:
+        x = spmd.enter_model(x)
     return _constrain(x @ head, BATCH_AXES, None, "model")
 
 
@@ -249,7 +282,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens, *,
                 positions=None):
     """One-token decode. tokens (B,1) int32. Returns (logits, new_cache).
     Handles both unrolled ("layers") and stacked cache/param layouts."""
-    x = params["embed"][tokens.long()]
+    x = _lookup(cfg, params, tokens)
     b = x.shape[0]
     if "layers" in cache:
         ln = cache["layers"][0]["length"]
@@ -296,6 +329,9 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens, *,
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
             aux_weight: float = 0.01, chunk: int = 2048):
     logits, aux = forward(cfg, params, batch, chunk=chunk)
+    if logits.shape[-1] != cfg.vocab_size:      # this rank's vocab columns
+        ce = spmd.vocab_cross_entropy(logits, batch["labels"])
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
     # CE via select+reduce (the reference's: no gather along the vocab axis,
     # which a model-sharded vocab would have to replicate)
     lf = logits.float()

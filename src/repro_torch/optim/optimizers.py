@@ -95,17 +95,20 @@ def warmup_cosine(peak_lr: float, warmup: int = 100, total: int = 10000,
 
 
 @torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in float32."""
+def global_norm(tree, sq_sum=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in float32. `sq_sum`,
+    given the leaves' squared norms in `tree_leaves` order, returns their
+    total instead of the plain sum (a sharded step's: each element once,
+    over every rank, `training.spmd.norm_sq_sum`)."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(sum(leaves))
+    return torch.sqrt(sum(leaves) if sq_sum is None else sq_sum(leaves))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
-    """Scale `grads` so their global norm is at most `max_norm`:
-    ``(clipped, norm before clipping)``."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, sq_sum=None):
+    """Scale `grads` so their global norm (`global_norm` with `sq_sum`) is
+    at most `max_norm`: ``(clipped, norm before clipping)``."""
+    norm = global_norm(grads, sq_sum)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm
 

@@ -13,11 +13,16 @@ A partition spec is a plain tuple, one entry a dimension: a mesh-axis
 name, a tuple of names, or None (``PartitionSpec('data', None)`` is
 ``('data', None)``, ``PartitionSpec()`` is ``()``). A `NamedSharding` pairs
 it with a `launch.mesh.Mesh`. `local_shape` gives the block one device
-holds, and `place` is the port's ``device_put``: it stores each leaf on its
-mesh device, whole where every device of the mesh is one device (the one
-card, or ``[cpu] * k`` in tests), and refuses a real split over distinct
-devices, which needs the sharded LM step over distinct cards (ROADMAP.md
-queue 1, item 14a).
+holds, `block_slices` where it lies in the whole leaf (the reference's
+``NamedSharding.devices_indices_map``), and `place` is the port's
+``device_put``. On a mesh of ranks' devices (`process.ProcessDevice`
+entries, one rank each) `place` stores this rank's block on its device
+(`shard` takes the blocks, `gather` makes them whole again, both for the
+sharded LM step of `training.spmd`). On a mesh of one process's devices
+it stores each leaf whole where every device is one device (the one card,
+or ``[cpu] * k`` in tests), and refuses a real split over distinct
+devices: one process never splits a leaf, the ranks of a process mesh
+do.
 """
 
 from __future__ import annotations
@@ -25,8 +30,11 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
+from repro_torch.distributed import process
+from repro_torch.distributed.process import ProcessDevice
 from repro_torch.launch.mesh import Mesh, batch_axes
 from repro_torch.models.params import ParamSpec
 from repro_torch.optim.optimizers import tree_map, tree_paths
@@ -95,9 +103,10 @@ def param_shardings(mesh: Mesh, spec_tree):
 
 
 def constrain_like_params(tree, spec_tree):
-    """`tree` unchanged: one process holds each gradient whole on its
-    device, so there is no layout to constrain (`models.common.constrain`
-    likewise)."""
+    """`tree` unchanged: a gradient already lands in its parameter's
+    layout, whole in one process, on the rank's block under a process
+    mesh (`training.spmd.gather_data`'s backward reduce-scatters it
+    there)."""
     return tree
 
 
@@ -207,12 +216,83 @@ def local_bytes(tree, shardings) -> int:
     return total
 
 
+def is_process_mesh(mesh: Mesh) -> bool:
+    """Whether `mesh`'s entries are ranks' devices (`ProcessDevice`)."""
+    return isinstance(mesh.devices.flat[0], ProcessDevice)
+
+
+def mesh_position(mesh: Mesh) -> tuple[int, ...]:
+    """This rank's position in a process mesh (it must hold one entry)."""
+    me = process.process_index()
+    hits = [idx for idx, d in np.ndenumerate(mesh.devices)
+            if d.process_index == me]
+    if len(hits) != 1:
+        raise ValueError(f"rank {me} holds {len(hits)} entries of {mesh}; "
+                         "a process mesh gives each rank one")
+    return tuple(int(i) for i in hits[0])
+
+
+def block_slices(shape, spec: tuple, mesh: Mesh, position) -> tuple:
+    """The slices of a `shape` leaf that the device at mesh `position`
+    holds under `spec`: a dim split over axes takes their coordinates
+    row-major, blocks of `local_shape`'s size (the reference's
+    ``devices_indices_map``)."""
+    out = []
+    for i, dim in enumerate(shape):
+        axes = _names(spec[i]) if i < len(spec) else ()
+        n, c = 1, 0
+        for a in axes:
+            k = mesh.axis_names.index(a)
+            n, c = n * mesh.devices.shape[k], c * mesh.devices.shape[k] \
+                + position[k]
+        if n == 1:
+            out.append(slice(None))
+        else:
+            b = -(-dim // n)
+            out.append(slice(c * b, min((c + 1) * b, dim)))
+    return tuple(out)
+
+
+def shard(tree, shardings, position=None):
+    """Each tensor of `tree` cut to the block of `position` (default:
+    this rank's, `mesh_position`) under its `NamedSharding` (a
+    same-structured tree), on the tensor's device, in storage of its
+    own."""
+    def one(t, sh):
+        pos = mesh_position(sh.mesh) if position is None else position
+        block = t[block_slices(t.shape, sh.spec, sh.mesh, pos)]
+        return block.clone(memory_format=torch.contiguous_format)
+
+    return tree_map(one, tree, shardings)
+
+
+def gather(tree, shardings):
+    """Blocks made whole: every rank's block of each leaf all-gathered
+    over the axes that split it, on this rank's device (collective on a
+    process mesh; the tree itself elsewhere)."""
+    from repro_torch.training import spmd
+
+    def one(t, sh):
+        if not is_process_mesh(sh.mesh):
+            return t
+        lay = spmd.layout_of(sh.mesh)
+        for i, entry in enumerate(sh.spec):
+            for a in reversed(_names(entry)):
+                t = spmd.all_gather(lay, a, t, i, count=False)
+        return t
+
+    return tree_map(one, tree, shardings)
+
+
 def device_for(sh: NamedSharding) -> torch.device:
-    """The device `place` stores a leaf of sharding `sh` on: the mesh's
-    one device where it repeats one, else its first device for a leaf no
-    axis of size above 1 splits (the single-controller step reads it
-    there). A real split over distinct devices raises
-    `NotImplementedError`: it is never replaced by a silent replica."""
+    """The device `place` stores a leaf of sharding `sh` on: on a process
+    mesh this rank's device; else the mesh's one device where it repeats
+    one, else its first device for a leaf no axis of size above 1 splits
+    (the single-controller step reads it there). A real split over
+    distinct devices of one process raises `NotImplementedError`: it is
+    never replaced by a silent replica."""
+    if is_process_mesh(sh.mesh):
+        return sh.mesh.devices[mesh_position(sh.mesh)].device
     devices = set(sh.mesh.devices.flat)
     if len(devices) == 1:
         return next(iter(devices))
@@ -222,17 +302,20 @@ def device_for(sh: NamedSharding) -> torch.device:
         raise NotImplementedError(
             f"a leaf split over mesh axes {split} of distinct devices "
             f"{sorted(map(str, devices))}: one process holds each leaf "
-            "whole on one device; a real split needs the sharded LM step "
-            "over distinct cards (ROADMAP.md queue 1, item 14a)")
+            "whole on one device; a split runs one rank per device, on a "
+            "process mesh (launch.mesh.rank_mesh, training.spmd)")
     return sh.mesh.devices.flat[0]
 
 
 def place(tree, shardings):
-    """The port's ``jax.device_put(tree, shardings)``: each tensor of
-    `tree` whole on `device_for` its `NamedSharding` (a same-structured
-    tree)."""
+    """The port's ``jax.device_put(tree, shardings)`` (a same-structured
+    tree of `NamedSharding`s): on a process mesh this rank's block of each
+    tensor (`shard`) on its device; elsewhere each tensor whole on
+    `device_for` its sharding."""
     if isinstance(tree, dict):
         return {k: place(v, shardings[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(place(v, s) for v, s in zip(tree, shardings))
+    if is_process_mesh(shardings.mesh):
+        return shard(tree, shardings).to(device_for(shardings))
     return tree.to(device_for(shardings))

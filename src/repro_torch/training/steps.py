@@ -6,6 +6,13 @@ device its tensors are on. Gradients come from `torch.autograd.grad` on
 leaf copies of the parameters; updates run without autograd. The train
 state is the reference's ``{"params", "opt", "step"}``, which
 `distributed.checkpoint` saves as it saves the reference's.
+
+Given a mesh of ranks' devices (``mesh=``), the LM steps are the sharded
+step of `training.spmd`: the state holds this rank's blocks
+(`sharding.place`), the train and prefill steps take the rank's rows of
+the global batch, gradients land on the blocks (and accumulate there),
+the loss is the global batch mean and the gradients' norm the global one.
+The serve step works on the rank's rows and cache blocks.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from repro_torch.optim.optimizers import (apply_updates, clip_by_global_norm,
                                           tree_leaves, tree_map,
                                           tree_unflatten)
 from repro_torch.training import sharding as shd
+from repro_torch.training import spmd
 
 __all__ = ["make_train_step", "make_fit_step", "make_serve_step",
            "make_prefill_step", "make_optimizer", "train_state_specs",
@@ -40,7 +48,7 @@ def _microbatch(batch: dict, i: int, k: int, b: int) -> dict:
 
 
 def make_train_step(cfg: ArchConfig, *, lr=None, aux_weight: float = 0.01,
-                    chunk: int = 2048, accum: int = 1):
+                    chunk: int = 2048, accum: int = 1, mesh=None):
     """``(opt, train_step)``; ``train_step(state, batch) -> (new_state,
     metrics)``.
 
@@ -51,14 +59,38 @@ def make_train_step(cfg: ArchConfig, *, lr=None, aux_weight: float = 0.01,
     ``loss``, ``grad_norm``) are detached 0-d tensors: the loss and its
     parts are the microbatch means, the norm is before clipping. The
     parameter layout (unrolled or stacked) is read from the tree.
+
+    `mesh`, a mesh of ranks' devices (or an abstract one, whose
+    collectives only count): the state holds this rank's blocks, the
+    batch is global and the step takes its rows (accumulating over
+    microbatches of them), and the metrics are global.
     """
     opt = make_optimizer(cfg.optimizer, lr)
     acc_dtype = getattr(torch, cfg.grad_dtype)
+    layout = spmd.layout_of(mesh) if mesh is not None else None
+    spmd.refuse_unported(cfg, layout, optimizer=True)
+    norm_sq = {}
+
+    def sq_sum(params):
+        """The sharded global norm's squared sum for `params`' layout."""
+        stacked = "blocks" not in params
+        if stacked not in norm_sq:
+            norm_sq[stacked] = spmd.norm_sq_sum(params, shd.param_shardings(
+                mesh, lm.param_specs(cfg, stacked=stacked)))
+        return norm_sq[stacked]
 
     def train_step(state, batch):
+        with spmd.use(layout):
+            return step_on(state, batch)
+
+    def step_on(state, batch):
         params, opt_state, step = state["params"], state["opt"], state["step"]
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         live = tree_unflatten(params, leaves)
+        shards = 1
+        if layout is not None:
+            batch = spmd.local_rows(layout, batch)
+            shards = layout.size(layout.batch)
         # the batch size of the first entry in JAX's (sorted) order
         b = batch[sorted(batch)[0]].shape[0]
         k = accum if b % accum == 0 else 1
@@ -66,7 +98,10 @@ def make_train_step(cfg: ArchConfig, *, lr=None, aux_weight: float = 0.01,
         for i in range(k):
             ls, mt = lm.loss_fn(cfg, live, _microbatch(batch, i, k, b),
                                 aux_weight=aux_weight, chunk=chunk)
-            g = torch.autograd.grad(ls, leaves, allow_unused=True,
+            # a rank's mean over its rows, over the shards: the summed
+            # gradients are the global batch mean's
+            g = torch.autograd.grad(ls / shards if shards > 1 else ls,
+                                    leaves, allow_unused=True,
                                     materialize_grads=True)
             gf = [x.to(acc_dtype) / k for x in g]
             del g
@@ -76,8 +111,14 @@ def make_train_step(cfg: ArchConfig, *, lr=None, aux_weight: float = 0.01,
             mt = {n: v.detach() / k for n, v in mt.items()}
             metrics = mt if metrics is None else {
                 n: metrics[n] + mt[n] for n in mt}
-        grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads),
-                                           1.0)
+        if shards > 1:
+            names = sorted(metrics)
+            loss, *vals = spmd.batch_mean([loss] + [metrics[n]
+                                                    for n in names])
+            metrics = dict(zip(names, vals))
+        grads, gnorm = clip_by_global_norm(
+            tree_unflatten(params, grads), 1.0,
+            None if layout is None else sq_sum(params))
         updates, new_opt = opt.update(grads, opt_state, params, step)
         del grads
         new_params = apply_updates(params, updates)
@@ -117,25 +158,43 @@ def make_fit_step(opt, loss_fn, *, clip: float = 1.0):
     return fit_step
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, *, mesh=None):
     """``serve_step(params, cache, tokens) -> (next_tokens (B,1) int32,
     logits, new_cache)``: one greedy decode step under
     ``torch.inference_mode`` (no autograd, no version counters: less host
-    time an operator, and a decode step is host-bound)."""
+    time an operator, and a decode step is host-bound). Under a `mesh` of
+    ranks' devices the tokens, cache and logits are this rank's rows
+    (and vocab columns), the parameters its blocks, and the next tokens
+    the global argmax."""
+    layout = spmd.layout_of(mesh) if mesh is not None else None
+    spmd.refuse_unported(cfg, layout)
+
     @torch.inference_mode()
     def serve_step(params, cache, tokens):
-        logits, new_cache = lm.decode_step(cfg, params, cache, tokens)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        with spmd.use(layout):
+            logits, new_cache = lm.decode_step(cfg, params, cache, tokens)
+            last = logits[:, -1]
+            next_tok = (spmd.vocab_argmax(last)
+                        if last.shape[-1] != cfg.vocab_size
+                        else torch.argmax(last, dim=-1)).to(torch.int32)
         return next_tok[:, None], logits, new_cache
 
     return serve_step
 
 
-def make_prefill_step(cfg: ArchConfig, *, chunk: int = 2048):
-    """``prefill_step(params, batch) -> logits``, without autograd."""
+def make_prefill_step(cfg: ArchConfig, *, chunk: int = 2048, mesh=None):
+    """``prefill_step(params, batch) -> logits``, without autograd (under
+    a `mesh` of ranks' devices: this rank's rows of the global batch, its
+    vocab columns)."""
+    layout = spmd.layout_of(mesh) if mesh is not None else None
+    spmd.refuse_unported(cfg, layout)
+
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = lm.forward(cfg, params, batch, chunk=chunk)
+        with spmd.use(layout):
+            if layout is not None:
+                batch = spmd.local_rows(layout, batch)
+            logits, _ = lm.forward(cfg, params, batch, chunk=chunk)
         return logits
 
     return prefill_step

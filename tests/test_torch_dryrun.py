@@ -195,11 +195,22 @@ def test_run_cell_and_dryrun_result_keys(tmp_path):
         compile_s=0.0)
     js = res.to_json()
     assert list(js) == list(ref.to_json())
-    assert js["t_collective"] == 0.0 and js["peak_bytes_per_device"] is None
+    assert js["peak_bytes_per_device"] is None
     assert js["n_devices"] == 256 and js["dominant"] == "memory"
     # priced on the H100 spec's data-sheet peaks
     from repro_torch.core import specs
     h100 = specs.get_spec("h100-sxm")
+    # an LM cell's collective bytes: what one device's sharded step
+    # issues (the ranks count the same calls: test_torch_lm_sharded.py)
+    want = dryrun.count_collectives(
+        tc.get("llama3.2-1b"), "decode", RSHAPES["decode_32k"]
+        ["global_batch"], RSHAPES["decode_32k"]["seq_len"],
+        dryrun.production_mesh(False))
+    assert res.coll_bytes == {k: float(want.get(k, 0))
+                              for k in roofline.COLLECTIVES}
+    assert sum(want.values()) > 0
+    assert js["t_collective"] == sum(res.coll_bytes.values()) / (
+        h100.ici_bw_per_link * h100.ici_links / 2)
     assert js["t_memory"] == js["model_bytes_per_device"] / h100.hbm_bw
     assert js["t_compute"] == js["flops_per_device"] / h100.peak_flops_bf16
     # girih cells: the reference's ghost-zone code balance, exactly
@@ -240,7 +251,7 @@ def test_main_writes_records_and_the_report_renders(tmp_path, capsys):
     assert "[cached]" in capsys.readouterr().out
     text = "\n".join(report.dryrun_section(recs))
     assert "## 6. Multi-pod dry-run & roofline" in text
-    assert "`h100-sxm`" in text and "collective term is 0" in text
+    assert "`h100-sxm`" in text and "sharded step issues" in text
     assert text.count("| mamba2-130m |") == 12   # 4 + 4 + the roofline's 4
 
 

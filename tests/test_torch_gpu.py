@@ -940,3 +940,20 @@ def test_two_ranks_share_the_card(cuda, tmp_path):
                          timeout_s=300)
     assert out[0][False] and out[0][True]
     assert all(r["launches"] > 0 for r in out)
+
+
+@pytest.mark.gpu
+def test_lm_sharded_step_on_two_ranks_sharing_the_card(cuda):
+    """Two gloo ranks on cuda:0, the reduced llama step on a (1, 2) mesh
+    (heads, MLP and vocab over 'model') in float32, against the
+    one-process step on the card: step 0's metrics and the next loss
+    within 1e-4 x max(1, |ref|), the new parameters within 1e-5 of each
+    leaf's norm."""
+    import _mp_lm_ranks
+    from repro_torch.distributed import process
+    out = process.launch(_mp_lm_ranks.card2, 2, (), timeout_s=300)
+    (got, want), (l1, w1) = out[0]["metrics"], out[0]["loss1"]
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])), k
+    assert abs(l1 - w1) <= 1e-4 * max(1.0, abs(w1))
+    assert out[0]["params_rel"] <= 1e-5
