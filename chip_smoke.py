@@ -267,8 +267,29 @@ failure so the script exits non-zero:
    power limit: the mesh, ms a step and tokens/s beside one process,
    each rank's peak GB and state bytes, the bytes and calls by kind, the
    share of the step inside gloo and in staging, rank 0's device idle
-   share and costliest operations (torch.profiler). No stencil kernel
-   runs in this phase.
+   share and costliest operations (torch.profiler). 13e-13h split what
+   13a-13d do not: 13e launch.train.main for mamba2-130m --full (24
+   layers, Mamba2 over its heads on (1, 4)), bf16, batch 4 x 256, 2
+   steps, losses within 2e-2 relative of one process, then serve_lm on
+   (1, 4) in float32 at 4 layers (batch 8, prompt 8, 4 tokens), ids
+   equal; 13f
+   mixtral-8x7b at the published width cut to 1 layer (experts over
+   'model', FSDP over 'data'), float32, batch 4 x 128, on (2, 2), its
+   weights drawn leaf by leaf (sharding.init_blocks, timed beside the
+   one process's whole-tree draw), loss, aux, grad_norm and the next
+   loss within 1e-4 x max(1, |ref|) of one process, the share of routed
+   assignments the capacity drops in one process printed (from the
+   router's counts and moe.capacity); 13g jamba-1.5-large at the
+   published width cut to its layer 0 (Mamba2 at d_inner 16384 and a
+   dense FFN) with Adafactor, as 13f, its weights drawn on the card, and
+   Adafactor's state after the second update (which reads back the
+   first's) gathered whole within 1e-4 of each leaf's norm of one
+   process's; 13h gemma3-1b at the published width, batch-1 decode on
+   (4, 1) with the KV slots over 'data' (steps.make_decoder): 2 tokens
+   from a seeded random cache of 32768 slots at length 30000, float32
+   at 6 layers (ids equal, logits within 1e-4 of one process) and bf16
+   at 13 of its 26 (the share of equal ids recorded), the last token
+   profiled. No stencil kernel runs in this phase.
 
 Before the last line come one `baseline` JSON line per (op, method) and a
 JSON object with one entry per kernel (K1's launches from phases 4, 4b,
@@ -3592,6 +3613,266 @@ LMS_SERVE_LAYERS = 4                      # 13d's bf16 leg: 4 of 16 layers
 LMS_SERVE_F32_GEN = 4
 
 
+LMS_MAMBA = ("mamba2-130m", 4, 256, 2)     # 13e: arch, batch, seq, steps
+LMS_MAMBA_SERVE = (8, 8, 4)                # 13e, float32: batch, prompt, gen
+LMS_MAMBA_SERVE_LAYERS = 4                 # 13e's serving: 4 of 24 layers
+LMS_WIDE = {"13f": ("mixtral-8x7b", 1), "13g": ("jamba-1.5-large-398b", 1)}
+LMS_WIDE_BATCH, LMS_WIDE_MESH = (4, 128), (2, 2)
+LMS_LONG = ("gemma3-1b", 32768, 30000, 2)  # 13h: arch, slots, length, tokens
+LMS_LONG_MESH = (4, 1)
+LMS_LONG_LAYERS = {"float32": 6, "bfloat16": 13}   # 13h: of 26 layers
+
+
+def lms_mamba_argv() -> list:
+    """13e's launcher arguments: the published width and depth, bf16."""
+    arch, batch, seq, steps = LMS_MAMBA
+    return ["--full", "--arch", arch, "--steps", str(steps), "--batch",
+            str(batch), "--seq", str(seq), "--device", "cuda"]
+
+
+def lms_mamba_serve_cfg():
+    """13e's serving config: mamba2-130m at the published width, cut to
+    LMS_MAMBA_SERVE_LAYERS layers, float32."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(LMS_MAMBA[0]), dtype="float32",
+                               n_layers=LMS_MAMBA_SERVE_LAYERS)
+
+
+def lms_wide_cfg(phase: str):
+    """13f/13g's config: the published width, cut in depth, float32."""
+    from repro_torch import configs
+    arch, layers = LMS_WIDE[phase]
+    return dataclasses.replace(configs.get(arch), n_layers=layers,
+                               dtype="float32")
+
+
+def lms_long_cfg(dtype: str):
+    """13h's config: gemma3-1b at the published width, cut to
+    LMS_LONG_LAYERS[dtype] layers (float32: five local and one global;
+    bfloat16: half its depth, two global layers), in `dtype`."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(LMS_LONG[0]), dtype=dtype,
+                               n_layers=LMS_LONG_LAYERS[dtype])
+
+
+def lms_card_params(cfg, dev, mesh=None):
+    """Seed-0 weights drawn on the card, leaf by leaf, by `tree_init`'s
+    rule (ones or zeros for vectors, else normal over the fan-in), the
+    same numbers on every rank; on a process `mesh` a rank keeps its
+    blocks (`sharding.place`). Seconds, where the host draw of the
+    published widths would take a minute a rank."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.training import sharding as shd
+    specs = lm.param_specs(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one(s):
+        if len(s.shape) == 1:
+            return torch.full(s.shape, 1.0 if s.init_scale else 0.0,
+                              dtype=s.torch_dtype, device=dev)
+        std = s.init_scale / math.sqrt(max(math.prod(s.shape[:-1]), 1))
+        return (torch.randn(s.shape, generator=gen, device=dev) * std).to(
+            s.torch_dtype)
+
+    if mesh is None:
+        return tree_map(one, specs)
+    return tree_map(lambda s, sh: shd.place(one(s), sh), specs,
+                    shd.param_shardings(mesh, specs))
+
+
+def lms_host_bytes(phase: str) -> dict:
+    """The host bytes a weight draw holds at once at `phase`'s config,
+    float32 draws: at most the `params.INIT_WORKERS` largest leaves
+    (`sharding.init_blocks`, a leaf a thread), the largest leaf, and the
+    whole tree (tree_init, then the blocks cut)."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import INIT_WORKERS, sorted_leaves
+    sizes = sorted(4 * math.prod(s.shape) for s in sorted_leaves(
+        lm.param_specs(lms_wide_cfg(phase))))
+    return {"host_bytes_at_most": sum(sizes[-INIT_WORKERS:]),
+            "init_workers": INIT_WORKERS,
+            "host_bytes_largest_leaf": sizes[-1],
+            "host_bytes_whole_tree": sum(sizes)}
+
+
+def lms_predraw(dev) -> dict:
+    """13f's seed-0 weights, this rank's blocks drawn leaf by leaf on the
+    host (`sharding.init_blocks` over a (2, 2) mesh of the ranks' CPUs),
+    while the parent's one-process runs hold the card; their seconds."""
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import lm
+    from repro_torch.training import sharding as shd
+    specs = lm.param_specs(lms_wide_cfg("13f"))
+    host = launch_mesh.rank_mesh(LMS_WIDE_MESH, device="cpu")
+    t = time.perf_counter()
+    params = shd.init_blocks(specs, 0, shd.param_shardings(host, specs))
+    return {"params": params, "draw_s": time.perf_counter() - t}
+
+
+def lms_dropped_share(cfg, params, batch) -> float:
+    """The share of routed assignments that the experts' capacity drops
+    in a forward of `batch` in one process: each MoE layer's router top-k
+    counts beyond `moe.capacity`, read at its input (`moe.moe_ffn`
+    wrapped for the call); None where no layer routes."""
+    import torch
+    from repro_torch.models import lm, moe
+    dropped, routed, route = [], [], moe.moe_ffn
+
+    def spy(p, c, x, act):
+        xf = x.reshape(-1, x.shape[-1])
+        idx = torch.topk(torch.softmax(xf.float() @ p["router"], -1),
+                         c.experts_per_token, dim=-1)[1]
+        counts = torch.bincount(idx.reshape(-1), minlength=c.n_experts)
+        dropped.append(int(torch.clamp(
+            counts - moe.capacity(c, xf.shape[0]), min=0).sum()))
+        routed.append(idx.numel())
+        return route(p, c, x, act)
+
+    moe.moe_ffn = spy
+    try:
+        with torch.no_grad():
+            lm.loss_fn(cfg, params, batch, chunk=batch["tokens"].shape[1])
+    finally:
+        moe.moe_ffn = route
+    return sum(dropped) / sum(routed) if routed else None
+
+
+def lms_wide_steps(phase: str, mesh, dev, pre=None,
+                   profile: bool = False) -> dict:
+    """13f/13g: two float32 train steps of `lms_wide_cfg(phase)` on a
+    seed-0 batch (the sharded step on a process `mesh`, else one
+    process), the second under torch.profiler where `profile`: step 0's
+    metrics, the next loss, each step's ms, the weights' draw seconds,
+    the optimizer state after the second update made whole on the host
+    (Adafactor's, which that update reads back from the first), in one
+    process MoE's dropped share (`lms_dropped_share`), and the state
+    left. 13f's seed-0 weights come from the host (`tree_init`: a rank's
+    blocks drawn leaf by leaf beforehand, `pre`), 13g's from the card
+    (`lms_card_params`)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_init
+    from repro_torch.optim.optimizers import tree_map, tree_paths
+    from repro_torch.training import sharding as shd
+    from repro_torch.training import steps as tsteps
+    cfg = lms_wide_cfg(phase)
+    b, s = LMS_WIDE_BATCH
+    opt, step = tsteps.make_train_step(cfg, chunk=s, mesh=mesh)
+    specs = lm.param_specs(cfg)
+    t = time.perf_counter()
+    if phase == "13g":
+        params = lms_card_params(cfg, dev, mesh)
+    elif pre is not None:
+        params = tree_map(lambda x: x.to(dev), pre["params"])
+    else:
+        params = tree_init(specs, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out = {"draw_s": time.perf_counter() - t if pre is None
+           else pre["draw_s"], "ms": [], "profiled": None,
+           "dropped_share": None}
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                              dtype=torch.int32).to(dev)
+             for k in ("tokens", "labels")}
+    if mesh is None:
+        out["dropped_share"] = lms_dropped_share(cfg, params, batch)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    del params
+    for i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ran = {}
+
+        def run():
+            ran["state"], ran["m"] = step(state, batch)
+            ran["loss"] = float(ran["m"]["loss"])
+
+        if i == 1 and profile:
+            out["profiled"] = device_split(run)
+        else:
+            run()
+        state, m, loss = ran["state"], ran["m"], ran["loss"]
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        if i == 0:
+            out["m0"] = {k: float(v) for k, v in m.items()}
+        else:
+            out["loss1"] = loss
+    if cfg.optimizer == "adafactor":
+        new = state["opt"]
+        if mesh is not None:
+            new = shd.gather(new, tsteps.train_state_specs(cfg)[1](mesh)[
+                "opt"])
+        out["opt"] = {n: x.cpu() for n, x in tree_paths(new)}
+    out.update(state=state, cfg=cfg)
+    return out
+
+
+def lms_long_cache(cfg, dev) -> dict:
+    """13h's batch-1 cache of LMS_LONG's slots, whole, on the card: seeded
+    normal entries (the same on every rank), every length LMS_LONG's."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import tree_map
+    _, slots, length, _ = LMS_LONG
+    gen = torch.Generator(device=dev).manual_seed(1)
+    return tree_map(
+        lambda s: torch.full(s.shape, length, dtype=s.dtype, device=dev)
+        if s.dtype == torch.int32 else torch.randn(
+            s.shape, generator=gen, device=dev).to(s.dtype),
+        lm.cache_spec(cfg, 1, slots))
+
+
+def lms_long_decode(dtype: str, mesh, dev, rank: int = -1) -> dict:
+    """13h: LMS_LONG's tokens of greedy batch-1 decode from
+    `lms_long_cache` with `lms_card_params`, laid out by
+    `steps.make_decoder` (on a process `mesh` the cache's KV slots over
+    'data'), the last token under the profiler on `rank` 0
+    (`lms_profiled`): the ids, the last step's logits made whole on the
+    host, ms a token, and the state's bytes against `local_bytes`."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_sds
+    from repro_torch.training import sharding as shd
+    from repro_torch.training import spmd
+    from repro_torch.training import steps as tsteps
+    cfg = lms_long_cfg(dtype)
+    _, slots, _, n_tok = LMS_LONG
+    specs = lm.param_specs(cfg)
+    dec = tsteps.make_decoder(cfg, 1, slots, mesh=mesh)
+    params = lms_card_params(cfg, dev, mesh)
+    cache = dec.place(lms_long_cache(cfg, dev))
+    out = {"profiled": None}
+    if mesh is not None:
+        out["state_bytes"] = lms_bytes(params) + lms_bytes(cache)
+        out["local_bytes"] = shd.local_bytes(
+            tree_sds(specs), shd.param_shardings(mesh, specs)) \
+            + shd.local_bytes(lm.cache_spec(cfg, 1, slots), dec.shardings)
+    tok = torch.full((1, 1), 7, dtype=torch.int32, device=dev)
+    ids, ms, ran = [], [], {}
+    for i in range(n_tok):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+
+        def run():
+            ran["out"] = dec.step(params, cache, tok)
+
+        if i == n_tok - 1 and rank >= 0:
+            out["profiled"] = lms_profiled(rank, run)
+        else:
+            run()
+        tok, logits, cache = ran["out"]
+        ids.append(int(tok))
+        ms.append((time.perf_counter() - t) * 1e3)
+    if mesh is not None and logits.shape[-1] != cfg.vocab_size:
+        logits = spmd.all_gather(spmd.layout_of(mesh), "model", logits, -1,
+                                 count=False)
+    out.update(ids=ids, logits=logits.float().cpu(), ms=ms)
+    return out
+
+
 def lms_train_argv() -> list:
     """13a's launcher arguments: the published width, bf16."""
     arch, batch, seq, steps = LMS_TRAIN
@@ -3736,6 +4017,7 @@ def lms_rank(rank, world_size, init_method, ckpt_dir, go):
     out = {}
     try:
         lms_warm(dev)
+        pre = lms_predraw(dev)
         lms_wait(go)
         process.barrier()
         # 13a: the launcher, every rank in the mesh plan_mesh gives
@@ -3837,6 +4119,7 @@ def lms_rank(rank, world_size, init_method, ckpt_dir, go):
         counter = spmd.COUNTER.snapshot()
         smesh = elastic.build_mesh(devices=launch_mesh.rank_devices(dev))
         c_spec = lm.cache_spec(cfg, batch, prompt + gen)
+        dec = tsteps.make_decoder(cfg, batch, prompt + gen, mesh=smesh)
         specs = lm.param_specs(cfg)
         from repro_torch.models.params import tree_sds
         d = {"mesh": list(smesh.devices.shape), "ids": rec["ids"].tolist(),
@@ -3849,12 +4132,10 @@ def lms_rank(rank, world_size, init_method, ckpt_dir, go):
              + lms_bytes(rec["cache"]),
              "local_bytes": shd.local_bytes(
                  tree_sds(specs), shd.param_shardings(smesh, specs))
-             + shd.local_bytes(c_spec, shd.cache_shardings(
-                 smesh, cfg, c_spec, seq_shard=False))}
-        serve_step = tsteps.make_serve_step(cfg, mesh=smesh)
+             + shd.local_bytes(c_spec, dec.shardings)}
         params, cache, toks = rec["params"], rewind(rec["cache"]), rec["next"]
         d["profiled"] = lms_profiled(
-            rank, lambda: serve_step(params, cache, toks))
+            rank, lambda: dec.step(params, cache, toks))
         del rec, params, cache, toks
         torch.cuda.empty_cache()
         rec = serve.serve_lm(lms_f32_cfg(), batch, prompt,
@@ -3862,9 +4143,114 @@ def lms_rank(rank, world_size, init_method, ckpt_dir, go):
         d["ids_f32"] = rec["ids"].tolist()
         d["wall_s"] = time.perf_counter() - t_part
         out["13d"] = d
+        del rec
+        torch.cuda.empty_cache()
+        out.update(lms_rank_split(rank, dev, pre))
         return out
     finally:
         process.finalize()
+
+
+def lms_rank_split(rank: int, dev, pre: dict) -> dict:
+    """13e-13h on one rank (`lms_rank`'s group): the Mamba2, MoE and
+    Adafactor steps and batch-1 decode across the four ranks (`pre`:
+    13f's blocks, `lms_predraw`)."""
+    import torch
+    from repro_torch.distributed import elastic
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import serve, train
+    from repro_torch.training import sharding as shd
+    from repro_torch.training import spmd
+    from repro_torch.training import steps as tsteps
+    out = {}
+
+    def begin():
+        spmd.COUNTER.reset()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    # 13e: mamba2-130m, the launcher at full depth, then serving
+    t_part = time.perf_counter()
+    argv = lms_mamba_argv()
+    begin()
+    records = []
+    state = train.main(argv, records=records)
+    counter = spmd.COUNTER.snapshot()
+    mesh = elastic.build_mesh(devices=launch_mesh.rank_devices(dev))
+    cfg, _, step, pipe = train.build(train.build_parser().parse_args(argv),
+                                     mesh)
+    sds, sh_fn = tsteps.train_state_specs(cfg)
+    e = {"mesh": list(mesh.devices.shape), "records": records,
+         "counter": lms_counter(counter, sum(r["ms"] for r in records)
+                                / 1e3),
+         "peak_gb": peak_gb(), "state_bytes": lms_bytes(state),
+         "local_bytes": shd.local_bytes(sds, sh_fn(mesh))}
+    data = pipe.get_batch(LMS_MAMBA[3], cfg, device=dev)
+    e["profiled"] = lms_profiled(
+        rank, lambda: float(step(state, data)[1]["loss"]))
+    del state, step, data
+    torch.cuda.empty_cache()
+    b, prompt, gen = LMS_MAMBA_SERVE
+    begin()
+    rec = serve.serve_lm(lms_mamba_serve_cfg(), b, prompt, gen,
+                         device="cuda")
+    e["serve"] = {"ids_f32": rec["ids"].tolist(), "counter": lms_counter(
+        spmd.COUNTER.snapshot(),
+        (rec["prefill_ms"] + sum(rec["decode_ms"])) / 1e3),
+        **{k: rec[k] for k in ("prefill_ms", "decode_ms_per_token",
+                               "tokens_per_s")}}
+    del rec
+    torch.cuda.empty_cache()
+    e["wall_s"] = time.perf_counter() - t_part
+    out["13e"] = e
+
+    # 13f, 13g: a train step at the published width on (2, 2)
+    mesh22 = launch_mesh.rank_mesh(LMS_WIDE_MESH, device=dev)
+    for phase in LMS_WIDE:
+        t_part = time.perf_counter()
+        begin()
+        run = lms_wide_steps(phase, mesh22, dev,
+                             pre if phase == "13f" else None, rank == 0)
+        pre = None
+        counter = spmd.COUNTER.snapshot()
+        sds, sh_fn = tsteps.train_state_specs(run["cfg"])
+        w = {"mesh": list(LMS_WIDE_MESH), "m0": run["m0"],
+             "loss1": run["loss1"], "ms": run["ms"],
+             "draw_s": run["draw_s"],
+             "opt": run.get("opt") if rank == 0 else None,
+             "counter": lms_counter(counter, sum(run["ms"]) / 1e3),
+             "peak_gb": peak_gb(), "state_bytes": lms_bytes(run["state"]),
+             "local_bytes": shd.local_bytes(sds, sh_fn(mesh22)),
+             "profiled": run["profiled"]}
+        del run
+        torch.cuda.empty_cache()
+        w["wall_s"] = time.perf_counter() - t_part
+        out[phase] = w
+
+    # 13h: batch-1 decode, the KV slots over 'data'
+    t_part = time.perf_counter()
+    mesh41 = launch_mesh.rank_mesh(LMS_LONG_MESH, device=dev)
+    h = {"mesh": list(LMS_LONG_MESH)}
+    for dtype in ("float32", "bfloat16"):
+        begin()
+        r = lms_long_decode(dtype, mesh41, dev,
+                            rank if dtype == "bfloat16" else -1)
+        leg = {"ids": r["ids"], "ms": r["ms"], "counter": lms_counter(
+            spmd.COUNTER.snapshot(), sum(r["ms"]) / 1e3),
+            "peak_gb": peak_gb(), "state_bytes": r["state_bytes"],
+            "local_bytes": r["local_bytes"]}
+        if dtype == "float32":
+            leg["logits"] = r["logits"]
+            h["f32"] = leg
+        else:
+            h.update(leg, profiled=r["profiled"])
+        del r
+        torch.cuda.empty_cache()
+    h["wall_s"] = time.perf_counter() - t_part
+    out["13h"] = h
+    return out
 
 
 def sds_shape(sds, name: str) -> tuple:
@@ -3915,7 +4301,21 @@ def lms_dryrun_counts() -> dict:
                                         chunk=s),
         "13d": dryrun.count_collectives(
             lms_serve_cfg(), "decode", LMS_SERVE[1], sum(LMS_SERVE[2:]),
-            abstract_mesh((1, 4), axes))}
+            abstract_mesh((1, 4), axes)),
+        "13e": dryrun.count_collectives(
+            configs.get(LMS_MAMBA[0]), "train", LMS_MAMBA[1], LMS_MAMBA[2],
+            abstract_mesh((1, 4), axes), chunk=min(LMS_MAMBA[2], 2048)),
+        "13e_serve": dryrun.count_collectives(
+            lms_mamba_serve_cfg(), "decode", LMS_MAMBA_SERVE[0], sum(LMS_MAMBA_SERVE[1:]),
+            abstract_mesh((1, 4), axes)),
+        **{p: dryrun.count_collectives(
+            lms_wide_cfg(p), "train", *LMS_WIDE_BATCH,
+            abstract_mesh(LMS_WIDE_MESH, axes), chunk=LMS_WIDE_BATCH[1])
+           for p in LMS_WIDE},
+        **{f"13h_{d}": dryrun.count_collectives(
+            lms_long_cfg(d), "decode", 1, LMS_LONG[1],
+            abstract_mesh(LMS_LONG_MESH, axes))
+           for d in ("float32", "bfloat16")}}
 
 
 def lms_one_process(dev) -> tuple:
@@ -3942,7 +4342,47 @@ def lms_one_process(dev) -> tuple:
                              LMS_SERVE_F32_GEN, device="cuda")["ids"]
     gc.collect()
     torch.cuda.empty_cache()
-    return ref_records, ref_b, ref_d, ref_d32
+    return ref_records, ref_b, ref_d, ref_d32, lms_one_process_split(dev)
+
+
+def lms_one_process_split(dev) -> dict:
+    """13e-13h's one-process runs: the launcher's records and the float32
+    serving (13e), the float32 steps (13f, 13g), the decodes (13h), and
+    their seconds."""
+    import gc
+
+    import torch
+    from repro_torch.launch import serve, train
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out = {"13e": {"records": []}}
+    train.main(lms_mamba_argv(), records=out["13e"]["records"])
+    free()
+    b, prompt, gen = LMS_MAMBA_SERVE
+    rec = serve.serve_lm(lms_mamba_serve_cfg(), b, prompt, gen,
+                         device="cuda")
+    out["13e"].update({k: rec[k] for k in ("ids", "prefill_ms",
+                                           "decode_ms_per_token",
+                                           "tokens_per_s")})
+    del rec
+    free()
+    for phase in LMS_WIDE:
+        run = lms_wide_steps(phase, None, dev)
+        out[phase] = {k: run.get(k) for k in ("m0", "loss1", "ms", "opt",
+                                              "draw_s", "dropped_share")}
+        del run
+        free()
+    for dtype in ("float32", "bfloat16"):
+        r = lms_long_decode(dtype, None, dev)
+        out["13h", dtype] = {k: r[k] for k in ("ids", "logits", "ms")}
+        del r
+        free()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def phase_lm_sharded(dev) -> dict:
@@ -3951,9 +4391,13 @@ def phase_lm_sharded(dev) -> dict:
     `lms_rank`); they start up while the one-process runs they are held
     against use the card, and run once those are done. Checks: 13a losses within 2e-2 relative; 13b loss,
     grad_norm and the next loss within 1e-4 x max(1, |ref|); 13c bitwise
-    (in the rank); 13d float32 ids equal; every rank's state bytes equal
-    to local_bytes; the bytes each rank counted equal to the dry-run's
-    count of the cell times the steps. One `lm_sharded` line per run."""
+    (in the rank); 13d float32 ids equal; 13e losses within 2e-2
+    relative and float32 ids equal; 13f and 13g loss, ce, aux, grad_norm
+    and the next loss within 1e-4 x max(1, |ref|), 13g's Adafactor state
+    after the second update within 1e-4 of each leaf's norm; 13h float32
+    ids equal and logits within 1e-4; every rank's state bytes equal to
+    local_bytes; the bytes each rank counted equal to the dry-run's count
+    of the cell times the steps. One `lm_sharded` line per run."""
     import gc
 
     import torch
@@ -3972,7 +4416,7 @@ def phase_lm_sharded(dev) -> dict:
                                   (ckpt, go), timeout_s=LMS_DEADLINE_S)
             released = "abort"
             try:
-                ref_records, ref_b, ref_d, ref_d32 = lms_one_process(dev)
+                refs = lms_one_process(dev)
                 released = "run"
             finally:
                 with open(go + ".tmp", "w") as f:
@@ -3986,9 +4430,13 @@ def phase_lm_sharded(dev) -> dict:
             t_spawn = time.perf_counter() - t_spawn
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    lms_report(card, ranks, (ref_records, ref_b, ref_d, ref_d32), dry)
+    lms_report(card, ranks, refs, dry)
+    split = sum(r[p]["wall_s"] for r in ranks[:1]
+                for p in ("13e", "13f", "13g", "13h"))
     log(f"phase 13 lm sharded: {time.perf_counter() - t0:.1f} s "
-        f"(one-process runs {t_ref:.1f} s, the spawn {t_spawn:.1f} s)")
+        f"(one-process runs {t_ref:.1f} s, 13e-13h's "
+        f"{refs[-1]['wall_s']:.1f}; the spawn {t_spawn:.1f} s, 13e-13h's "
+        f"{split:.1f} on rank 0)")
     return {"spawn_s": t_spawn}
 
 
@@ -3996,7 +4444,7 @@ def lms_report(card: str, ranks: list, refs: tuple, dry: dict) -> None:
     """Phase 13's checks in the parent and its `lm_sharded` lines: the
     ranks' results against the one-process runs `refs` and the dry-run's
     per-step counts `dry`."""
-    ref_records, ref_b, ref_d, ref_d32 = refs
+    ref_records, ref_b, ref_d, ref_d32, split = refs
     for r in ranks:
         for p in ("13a", "13b", "13d"):
             check(r[p]["state_bytes"] == r[p]["local_bytes"],
@@ -4081,6 +4529,138 @@ def lms_report(card: str, ranks: list, refs: tuple, dry: dict) -> None:
         "bf16_ids_equal_share": sum(same) / len(same),
         "f32_layers": LMS_F32[1], "f32_gen": LMS_SERVE_F32_GEN,
         "f32_ids_equal": True})))
+    lms_report_split(card, ranks, split, dry)
+
+
+def lms_report_split(card: str, ranks: list, ref: dict, dry: dict) -> None:
+    """13e-13h's checks in the parent and their `lm_sharded` lines."""
+    for r in ranks:
+        for p in ("13e", "13f", "13g", "13h"):
+            check(r[p]["state_bytes"] == r[p]["local_bytes"],
+                  f"{p}: a rank holds {r[p]['state_bytes']} bytes, "
+                  f"local_bytes {r[p]['local_bytes']}")
+        check(r["13h"]["f32"]["state_bytes"]
+              == r["13h"]["f32"]["local_bytes"],
+              "13h: the float32 leg's state bytes differ from local_bytes")
+
+    def counted(p, got, n, want):
+        check(all(got(r) == got(ranks[0]) for r in ranks)
+              and all(got(ranks[0])[k] == n * want[k] for k in want),
+              f"{p}: counted {got(ranks[0])} over {n} steps, the "
+              f"dry-run's {want} a step")
+
+    # 13e
+    arch, tb, ts, n_steps = LMS_MAMBA
+    e0 = ranks[0]["13e"]
+    check(e0["mesh"] == [1, 4], f"13e: plan_mesh gave {e0['mesh']}")
+    losses = [[x["loss"] for x in r["13e"]["records"]] for r in ranks]
+    want = [x["loss"] for x in ref["13e"]["records"]]
+    rel = max(abs(g - w) / abs(w) for got in losses
+              for g, w in zip(got, want))
+    check(all(len(x) == len(want) for x in losses) and rel <= 2e-2,
+          f"13e: losses {losses} against the one-process {want}")
+    counted("13e", lambda r: r["13e"]["counter"]["bytes"], n_steps,
+            dry["13e"])
+    counted("13e serving", lambda r: r["13e"]["serve"]["counter"]["bytes"],
+            sum(LMS_MAMBA_SERVE[1:]), dry["13e_serve"])
+    ids = ref["13e"]["ids"].tolist()
+    check(all(r["13e"]["serve"]["ids_f32"] == ids for r in ranks),
+          f"13e: float32 ids {e0['serve']['ids_f32']} against the "
+          f"one-process {ids}")
+    step_ms = [r["13e"]["records"][-1]["ms"] for r in ranks]
+    log("lm_sharded " + json.dumps(lms_line("13e", card, ranks, {
+        "arch": arch, "batch": tb, "seq": ts,
+        "steps": n_steps, "dtype": "bfloat16",
+        "dryrun_coll_bytes_per_step": dry["13e"], "losses": losses[0],
+        "one_process_losses": want, "loss_rel_err": rel,
+        "ms_per_step_per_rank": step_ms,
+        "tokens_per_s": tb * ts / (max(step_ms) / 1e3),
+        "one_process_ms": ref["13e"]["records"][-1]["ms"],
+        "serve_f32": {"layers": LMS_MAMBA_SERVE_LAYERS,
+                      "batch": LMS_MAMBA_SERVE[0],
+                      "prompt_len": LMS_MAMBA_SERVE[1],
+                      "gen": LMS_MAMBA_SERVE[2], "ids_equal": True,
+                      "dryrun_coll_bytes_per_step": dry["13e_serve"],
+                      "coll_bytes_rank0": e0["serve"]["counter"]["bytes"],
+                      "gloo_share_rank0":
+                          e0["serve"]["counter"]["gloo_share"],
+                      **{k: e0["serve"][k] for k in (
+                          "prefill_ms", "decode_ms_per_token",
+                          "tokens_per_s")},
+                      "one_process": {k: ref["13e"][k] for k in (
+                          "prefill_ms", "decode_ms_per_token",
+                          "tokens_per_s")}}})))
+    # 13f, 13g
+    for p in LMS_WIDE:
+        w0, want = ranks[0][p], ref[p]
+        for k in ("loss", "ce", "aux", "grad_norm"):
+            check(lms_close(w0["m0"][k], want["m0"][k], 1e-4),
+                  f"{p}: {k} {w0['m0'][k]} against {want['m0'][k]}")
+        check(lms_close(w0["loss1"], want["loss1"], 1e-4),
+              f"{p}: next loss {w0['loss1']} against {want['loss1']}")
+        counted(p, lambda r: r[p]["counter"]["bytes"], 2, dry[p])
+        opt_err = None
+        if want["opt"] is not None:     # Adafactor's moments, read back
+            got = w0["opt"]
+            check(set(got) == set(want["opt"]),
+                  f"{p}: the optimizer state's leaves differ")
+            opt_err = max(float((got[n] - x).norm()
+                                / x.norm().clamp_min(1e-30))
+                          for n, x in want["opt"].items())
+            check(opt_err <= 1e-4, f"{p}: the optimizer state after the "
+                  f"second update is {opt_err} off the one process's")
+        arch, layers = LMS_WIDE[p]
+        b, s = LMS_WIDE_BATCH
+        log("lm_sharded " + json.dumps(lms_line(p, card, ranks, {
+            "arch": arch, "layers": layers, "batch": b, "seq": s,
+            "dtype": "float32", "optimizer": lms_wide_cfg(p).optimizer,
+            "dryrun_coll_bytes_per_step": dry[p], "metrics": w0["m0"],
+            "next_loss": w0["loss1"], "one_process_metrics": want["m0"],
+            "one_process_next_loss": want["loss1"],
+            "ms_per_step_per_rank": [r[p]["ms"][-1] for r in ranks],
+            "tokens_per_s": b * s / (max(r[p]["ms"][-1] for r in ranks)
+                                     / 1e3),
+            "one_process_ms": want["ms"][-1],
+            "one_process_dropped_share": want["dropped_share"],
+            "opt_state_rel_err_after_update_2": opt_err,
+            "draw_s_per_rank": [r[p]["draw_s"] for r in ranks],
+            "draw": "host, leaf by leaf" if p == "13f" else "card",
+            "one_process_draw_s": want["draw_s"],
+            "one_process_draw": "host, whole tree" if p == "13f"
+            else "card", **lms_host_bytes(p)})))
+    # 13h
+    h0 = ranks[0]["13h"]
+    f32, bf16 = ref["13h", "float32"], ref["13h", "bfloat16"]
+    check(all(r["13h"]["f32"]["ids"] == f32["ids"] for r in ranks),
+          f"13h: float32 ids {h0['f32']['ids']} against the one-process "
+          f"{f32['ids']}")
+    err = float((h0["f32"]["logits"] - f32["logits"]).abs().max())
+    check(err <= 1e-4, f"13h: float32 logits {err} off the one process's")
+    check(all(r["13h"]["ids"] == h0["ids"] for r in ranks),
+          "13h: the ranks returned different bf16 ids")
+    counted("13h float32", lambda r: r["13h"]["f32"]["counter"]["bytes"],
+            LMS_LONG[3], dry["13h_float32"])
+    counted("13h", lambda r: r["13h"]["counter"]["bytes"], LMS_LONG[3],
+            dry["13h_bfloat16"])
+    same = [x == y for x, y in zip(h0["ids"], bf16["ids"])]
+    arch, slots, length, n_tok = LMS_LONG
+    log("lm_sharded " + json.dumps(lms_line("13h", card, ranks, {
+        "arch": arch, "layers": lms_long_cfg("bfloat16").n_layers,
+        "slots": slots, "length": length, "tokens": n_tok,
+        "dtype": "bfloat16", "dryrun_coll_bytes_per_step":
+            dry["13h_bfloat16"],
+        "ms_per_token_rank0": statistics.median(h0["ms"][:-1]),
+        "profiled_token_ms_rank0": h0["ms"][-1],
+        "one_process_ms_per_token": statistics.median(bf16["ms"]),
+        "bf16_ids_equal_share": sum(same) / len(same),
+        "f32": {"layers": LMS_LONG_LAYERS["float32"], "ids_equal": True,
+                "logits_max_abs_err": err,
+                "ms_per_token_rank0": statistics.median(h0["f32"]["ms"]),
+                "one_process_ms_per_token": statistics.median(f32["ms"]),
+                "dryrun_coll_bytes_per_step": dry["13h_float32"],
+                "coll_bytes_rank0": h0["f32"]["counter"]["bytes"],
+                "gloo_share_rank0": h0["f32"]["counter"]["gloo_share"],
+                "peak_gb_rank0": h0["f32"]["peak_gb"]}})))
 
 
 def time_kernels() -> None:

@@ -25,9 +25,8 @@ collective bytes are its interior shard's halo bytes a super-step, what
 the multi-process stepper's carrier sends. An LM cell's are what one
 device's sharded step issues (`count_collectives`: the same calls of
 `training.spmd` that the ranks make, on meta blocks, counted and not
-run), by kind; Mamba2 and MoE cells, and long-context decode (batch 1),
-have none counted until the sharded step splits them (ROADMAP.md queue
-1, item 14a2).
+run), by kind, for every LM cell: Mamba2 and MoE layers, Adafactor and
+long-context decode (batch 1, the KV sequence over 'data') included.
 """
 
 from __future__ import annotations
@@ -70,7 +69,9 @@ GIRIH_GRIDS = {
 }
 GIRIH_ARCHS = tuple(f"girih-{s}" for s in stc.SPECS)
 
-# fleet-median useful-flops ratio the reference prices uncounted cells at
+# fleet-median useful-flops ratio the reference prices uncounted cells at;
+# every LM cell is counted here, and the report sets the MoE cells' counts
+# beside this guess
 MODEL_FLOPS_RATIO = 0.45
 
 
@@ -122,8 +123,7 @@ def count_step(cfg, kind: str, batch: int, seq: int, *, chunk: int = 2048,
     global, at the config's full depth, on meta tensors. Train runs the
     launcher's train step (loss, backward under remat, the optimizer
     update); prefill the prefill step; decode one serve step against a
-    `seq`-long cache. Raises NotImplementedError where an operator has no
-    meta kernel."""
+    `seq`-long cache."""
     inputs = steps.abstract_inputs(cfg, kind, batch, seq)
     with FlopCounterMode(display=False) as flops, OperatorBytes() as nbytes:
         if kind == "train":
@@ -156,9 +156,9 @@ def count_collectives(cfg, kind: str, batch: int, seq: int, mesh, *,
     the sharded step of the mesh's first device (`spmd.layout_of` gives
     a virtual layout there) run on meta blocks, its collectives counted
     and not run. These are the calls every rank of a process mesh of that
-    shape issues, and the bytes its `spmd.COUNTER` counts. Raises
-    NotImplementedError where the sharded step refuses the config (or
-    long-context decode)."""
+    shape issues, and the bytes its `spmd.COUNTER` counts. A decode is
+    laid out by `steps.make_decoder` (at batch 1 the cache's KV slots
+    over 'data', the one row on every rank)."""
     inputs = steps.abstract_inputs(cfg, kind, batch, seq)
     with spmd.counting() as counter:
         if kind == "train":
@@ -175,17 +175,9 @@ def count_collectives(cfg, kind: str, batch: int, seq: int, mesh, *,
                 steps.make_prefill_step(cfg, chunk=chunk, mesh=mesh)(
                     params, _meta(inputs["batch"]))
             else:
-                lay = spmd.layout_of(mesh)
-                if batch == 1 and lay.size(lay.batch) > 1:
-                    raise NotImplementedError(
-                        "long-context decode (batch 1, the KV sequence "
-                        "over 'data') waits for ROADMAP.md queue 1, item "
-                        "14a2")
-                cache = _meta_blocks(inputs["cache"], shd.cache_shardings(
-                    mesh, cfg, inputs["cache"], seq_shard=False))
-                tokens = spmd.local_rows(
-                    lay, {"tokens": _meta(inputs["tokens"])})["tokens"]
-                steps.make_serve_step(cfg, mesh=mesh)(params, cache, tokens)
+                dec = steps.make_decoder(cfg, batch, seq, mesh=mesh)
+                dec.step(params, _meta_blocks(inputs["cache"], dec.shardings),
+                         dec.rows(_meta(inputs["tokens"])))
     return dict(counter.bytes)
 
 
@@ -197,35 +189,24 @@ def probe_lm_cell(cfg, shape_name: str, mesh, *, chunk: int = 2048,
     because XLA's cost analysis counts a loop body once. Meta tensors cost
     no memory, so the port counts the whole depth, every layer run, and
     divides by the mesh's device count. The collective bytes are
-    `count_collectives`' (none where the sharded step refuses the cell;
-    ``coll_note`` says why). Raises NotImplementedError where an operator
-    of the step has no meta kernel."""
+    `count_collectives`'."""
     n_dev = mesh.devices.size
     s = SHAPES[shape_name]
     f, b = count_step(cfg, s["kind"], s["global_batch"], s["seq_len"],
                       chunk=chunk, accum=accum)
-    try:
-        coll = count_collectives(cfg, s["kind"], s["global_batch"],
-                                 s["seq_len"], mesh, chunk=chunk,
-                                 accum=accum)
-        note = ""
-    except NotImplementedError as e:
-        coll = {}
-        note = (" collectives not counted: "
-                f"{str(e).splitlines()[0][-110:]}")
+    coll = count_collectives(cfg, s["kind"], s["global_batch"],
+                             s["seq_len"], mesh, chunk=chunk, accum=accum)
     return {"flops": f / n_dev, "bytes": b / n_dev,
-            "coll": {k: float(coll.get(k, 0)) for k in roofline.COLLECTIVES},
-            "coll_note": note}
+            "coll": {k: float(coll.get(k, 0)) for k in roofline.COLLECTIVES}}
 
 
 def count_lm_cell(cfg, shape_name: str, mesh, *, chunk: int = 2048,
                   n_layers: int = 0, accum: int = 1):
     """Returns (probed, model_flops, model_bytes, arg_bytes, notes).
 
-    `probed` is `probe_lm_cell`'s count, or None where the step has no
-    meta kernel (MoE routing's ``torch.bincount``); `arg_bytes` the
-    per-device bytes of the step's arguments (the train state and batch;
-    the params and batch; the params, cache and tokens)."""
+    `probed` is `probe_lm_cell`'s count; `arg_bytes` the per-device
+    bytes of the step's arguments (the train state and batch; the params
+    and batch; the params, cache and tokens)."""
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     sinfo = SHAPES[shape_name]
@@ -245,16 +226,8 @@ def count_lm_cell(cfg, shape_name: str, mesh, *, chunk: int = 2048,
         arg_sh = (shd.param_shardings(mesh, spec_tree), in_shard_fn(mesh))
     arg_bytes = shd.local_bytes(args, arg_sh)
     notes = (f"N={n_total/1e9:.2f}B active={n_active/1e9:.2f}B "
-             f"accum={accum}")
-    try:
-        probed = probe_lm_cell(cfg, shape_name, mesh, chunk=chunk,
-                               accum=accum)
-        notes += f" counted/{n_dev}dev" + probed["coll_note"]
-    except NotImplementedError as e:
-        probed = None
-        notes += (" model-flops (no meta kernel: "
-                  f"{str(e).splitlines()[0][:80]}); collectives not "
-                  "counted")
+             f"accum={accum} counted/{n_dev}dev")
+    probed = probe_lm_cell(cfg, shape_name, mesh, chunk=chunk, accum=accum)
     return probed, mflops, mbytes, arg_bytes, notes
 
 
@@ -319,11 +292,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
              variant: dict | None = None, tag: str = "", dtype=None):
     """Count one dry-run cell and price its roofline record.
 
-    LM cells count their step at full depth (`probe_lm_cell`); a cell
-    whose step has no meta kernel takes the reference's route for its
-    uncounted cells, MODEL_FLOPS at a useful-flops ratio of 0.45 (notes
-    say 'model-flops'). Girih (stencil) cells are analytic
-    (`count_girih_cell`). Returns a `roofline.DryrunResult`.
+    LM cells count their step at full depth (`probe_lm_cell`), MoE
+    routing included (its counts are a scatter-add, which runs on meta
+    tensors). Girih (stencil) cells are analytic (`count_girih_cell`).
+    Returns a `roofline.DryrunResult`.
     """
     mesh = production_mesh(multi_pod)
     n_dev = mesh.devices.size
@@ -341,11 +313,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         probed, mflops, mbytes, arg_bytes, notes = count_lm_cell(
             cfg, shape_name, mesh, chunk=chunk, n_layers=n_layers,
             accum=accum)
-        if probed is None:
-            flops, counted_bytes = mflops / MODEL_FLOPS_RATIO / n_dev, None
-        else:
-            flops, counted_bytes = probed["flops"], probed["bytes"]
-            coll = probed["coll"]
+        flops, counted_bytes = probed["flops"], probed["bytes"]
+        coll = probed["coll"]
     res = roofline.analyze_counts(
         arch=arch, shape=shape_name, mesh_name=mesh_name(multi_pod),
         n_devices=n_dev, flops_per_device=flops,

@@ -28,7 +28,9 @@ import glob
 import json
 import os
 
+from repro_torch import configs
 from repro_torch.core import models
+from repro_torch.launch.dryrun import MODEL_FLOPS_RATIO
 from repro_torch.launch.sweep import RESULTS_DIR
 
 DEFAULT_OUT = os.path.join(RESULTS_DIR, "REPRODUCTION.md")
@@ -468,10 +470,9 @@ def dryrun_section(dr: list[dict]) -> list[str]:
                "cell's step ran once on `meta`")
     out.append("tensors (no storage, no card) under "
                "`torch.utils.flop_counter` and an operator-bytes counter,")
-    out.append("divided over the mesh's devices; `model-flops` cells "
-               "(MoE: `torch.bincount` has no meta")
-    out.append("kernel) take MODEL_FLOPS / 0.45; the stencil (girih) "
-               "cells are the ghost-zone model. The")
+    out.append("divided over the mesh's devices, MoE routing included; "
+               "the stencil (girih)")
+    out.append("cells are the ghost-zone model. The")
     out.append("terms are priced on the device spec `h100-sxm` "
                "(data-sheet peaks: bf16 tensor-core FLOP/s,")
     out.append("HBM bytes/s, NVLink's one-way rate). A girih cell's "
@@ -480,10 +481,10 @@ def dryrun_section(dr: list[dict]) -> list[str]:
                "carrier sends; an LM cell's are the")
     out.append("operand bytes by kind that one device's sharded step "
                "issues (`training.spmd`, its collectives")
-    out.append("counted on meta blocks, not run); Mamba2 and MoE cells and "
-               "long-context decode have none")
-    out.append("counted until the sharded step splits them (ROADMAP.md "
-               "queue 1, item 14a2).")
+    out.append("counted on meta blocks, not run), every block and "
+               "optimizer split as the reference's")
+    out.append("`NamedSharding`s split them (long-context decode: the KV "
+               "sequence over 'data').")
     out.append("")
     out.append("### 16x16 pod (256 devices)")
     out.append("")
@@ -497,7 +498,32 @@ def dryrun_section(dr: list[dict]) -> list[str]:
     out.append("")
     out.append(roofline_table(dr))
     out.append("")
+    out.append("### MoE cells: counted FLOPs beside MODEL_FLOPS / 0.45")
+    out.append("")
+    out.append("Before the routing's counts ran on `meta` tensors, these "
+               "cells took the reference's guess")
+    out.append("for uncounted cells, MODEL_FLOPS at a useful-flops ratio "
+               "of 0.45.")
+    out.append("")
+    out.append(moe_flops_table(dr))
+    out.append("")
     return out
+
+
+def moe_flops_table(results: list[dict]) -> str:
+    """Each MoE cell's counted FLOPs a device beside the guess it took
+    while its routing had no meta kernel (MODEL_FLOPS / 0.45 / devices)."""
+    rows = ["| arch | shape | mesh | counted flops/dev | MODEL_FLOPS / 0.45 "
+            "/dev | counted / guess |", "|" + "---|" * 6]
+    for r in results:
+        if "skip" in r or "error" in r or r["arch"] not in configs.REGISTRY \
+                or not configs.get(r["arch"]).n_experts:
+            continue
+        guess = r["model_flops_global"] / MODEL_FLOPS_RATIO / r["n_devices"]
+        rows.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+                    f"{r['flops_per_device']:.3e} | {guess:.3e} | "
+                    f"{r['flops_per_device'] / guess:.2f} |")
+    return "\n".join(rows)
 
 
 def render(results_dir: str = RESULTS_DIR) -> str:

@@ -62,9 +62,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import telemetry as tlm
 from repro_torch.models import lm
-from repro_torch.models.params import tree_init
 from repro_torch.training import sharding as shd
-from repro_torch.training import spmd
 from repro_torch.training import steps as tsteps
 
 
@@ -90,24 +88,15 @@ def prefill_into_cache(cfg, params, tokens, gen: int,
     if cache_len < s + max(gen, 1):
         raise ValueError(f"cache_len={cache_len} cannot hold the "
                          f"{s}-token prompt plus {max(gen, 1)} decode slots")
-    layout = spmd.layout_of(mesh) if mesh is not None else None
-    if layout is None:
+    dec = tsteps.make_decoder(cfg, b, cache_len, mesh=mesh)
+    if dec.layout is None:
         cache = lm.init_cache(cfg, b, cache_len, device=tokens.device)
     else:
-        if b == 1 and layout.size(layout.batch) > 1:
-            raise NotImplementedError(
-                "long-context decode (batch 1, the KV sequence over "
-                "'data') across ranks waits for ROADMAP.md queue 1, "
-                "item 14a2")
-        spec = lm.cache_spec(cfg, b, cache_len)
-        cache = shd.place(lm.init_cache(cfg, b, cache_len, device="cpu"),
-                          shd.cache_shardings(mesh, cfg, spec,
-                                              seq_shard=b == 1))
-        tokens = spmd.local_rows(layout, {"tokens": tokens})["tokens"]
-    serve = tsteps.make_serve_step(cfg, mesh=mesh)
+        cache = dec.place(lm.init_cache(cfg, b, cache_len, device="cpu"))
+    tokens = dec.rows(tokens)
     logits = None
     for i in range(s):
-        _, logits, cache = serve(params, cache, tokens[:, i:i + 1])
+        _, logits, cache = dec.step(params, cache, tokens[:, i:i + 1])
     return logits, cache
 
 
@@ -143,10 +132,8 @@ def serve_lm(cfg, batch: int, prompt_len: int, gen: int,
         mesh = elastic.build_mesh(devices=[dev])
     else:
         dev = shd.device_for(shd.NamedSharding(mesh, ()))
-    layout = spmd.layout_of(pmesh) if pmesh is not None else None
     specs = lm.param_specs(cfg)
-    params = shd.place(tree_init(specs, seed=0, device="cpu"),
-                       shd.param_shardings(mesh, specs))
+    params = shd.init_blocks(specs, 0, shd.param_shardings(mesh, specs))
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(
@@ -158,23 +145,20 @@ def serve_lm(cfg, batch: int, prompt_len: int, gen: int,
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
-    serve = tsteps.make_serve_step(cfg, mesh=pmesh)
-    toks = prompts[:, -1:]
-    if layout is not None:
-        toks = spmd.local_rows(layout, {"tokens": toks})["tokens"]
+    dec = tsteps.make_decoder(cfg, batch, prompt_len + max(gen, 1),
+                              mesh=pmesh)
+    toks = dec.rows(prompts[:, -1:])
     out, step_s = [], []
     for _ in range(gen):
         t0 = time.perf_counter()
-        toks, _, cache = serve(params, cache, toks)
+        toks, _, cache = dec.step(params, cache, toks)
         _sync(dev)
         step_s.append(time.perf_counter() - t0)
         out.append(toks)
     ids = (torch.cat(out, dim=1) if out
            else torch.zeros((toks.shape[0], 0), dtype=torch.int32,
                             device=dev))
-    if layout is not None:
-        ids = spmd.all_gather(layout, layout.batch, ids, 0, count=False)
-    ids = ids.cpu()
+    ids = dec.whole(ids).cpu()
     t_gen = sum(step_s)
     tput = batch * gen / t_gen if t_gen else 0.0
     if process.process_index() == 0:

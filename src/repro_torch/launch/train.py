@@ -43,7 +43,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint, elastic, process
 from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import lm
-from repro_torch.models.params import tree_abstract, tree_init
+from repro_torch.models.params import tree_abstract
 from repro_torch.optim.optimizers import tree_paths
 from repro_torch.training import sharding as shd
 from repro_torch.training import steps as tsteps
@@ -170,8 +170,8 @@ def _run(args, records):
         start_step, state = restore_state(args.ckpt, cfg, opt, mesh)
         say(f"resumed from step {start_step}")
     else:
-        params = shd.place(tree_init(spec_tree, seed=args.seed, device="cpu"),
-                           shd.param_shardings(mesh, spec_tree))
+        params = shd.init_blocks(spec_tree, args.seed,
+                                 shd.param_shardings(mesh, spec_tree))
         state = {"params": params, "opt": opt.init(params),
                  "step": torch.zeros((), dtype=torch.int32)}
 

@@ -18,7 +18,12 @@ row-parallel out, its input through `spmd.enter_model` and its output
 through `spmd.reduce_model`. kv heads that do not split while the query
 heads do are computed whole and each rank reads the ones its query heads
 group with (global head h with kv head h // (H / Hkv)). A split is read
-from the blocks' shapes, so one process runs the code unchanged.
+from the blocks' shapes, so one process runs the code unchanged. A
+batch-1 decode step under `spmd.decode_layout` whose KV cache splits its
+slots over 'data' holds a contiguous block of them a rank: the rank that
+owns slot ``length % cap`` (or ``length``) writes the new k and v, the
+mask is built on global slot positions, and the softmax combines across
+'data' as flash-decoding does (`spmd.seq_softmax`, `spmd.seq_sum`).
 """
 
 from __future__ import annotations
@@ -250,15 +255,28 @@ def attention(p, cfg: ArchConfig, x, positions, kind: str, *,
     else:
         # decode: append (ring-buffered for local layers) and attend
         ck, cv, ln = cache["k"], cache["v"], cache["length"]
-        cap = ck.shape[1]
-        idx = (ln % cap if kind == "local" else ln).reshape(1).long()
-        ck = ck.index_copy(1, idx, k)
-        cv = cv.index_copy(1, idx, v)
-        kpos_abs = torch.arange(cap, device=ck.device)
+        cap = whole = ck.shape[1]
+        seq_len = (spmd.active().seq_len if spmd.active() is not None
+                   else 0)
+        if seq_len:       # a batch-1 decode: the slots may split on 'data'
+            whole = min(cfg.window, seq_len) if kind == "local" else seq_len
+        off = spmd.seq_block(whole, cap)
+        idx = (ln % whole if kind == "local" else ln).reshape(1).long()
+        if cap == whole:
+            ck = ck.index_copy(1, idx, k)
+            cv = cv.index_copy(1, idx, v)
+        else:             # only the owner of the slot writes it
+            at = torch.clamp(idx - off, 0, cap - 1)
+            mine = (idx >= off) & (idx < off + cap)
+            ck = ck.index_copy(1, at, torch.where(
+                mine, k, ck.index_select(1, at)))
+            cv = cv.index_copy(1, at, torch.where(
+                mine, v, cv.index_select(1, at)))
+        kpos_abs = off + torch.arange(cap, device=ck.device)
         if kind == "local":
             # ring buffer slot i holds the largest position p <= ln with
             # p % cap == i; negative p = slot not yet filled
-            kpos = ln - torch.remainder(ln - kpos_abs, cap)
+            kpos = ln - torch.remainder(ln - kpos_abs, whole)
             valid = (kpos >= 0) & (ln - kpos < cfg.window)
         else:
             valid = kpos_abs <= ln
@@ -266,8 +284,16 @@ def attention(p, cfg: ArchConfig, x, positions, kind: str, *,
                   else (ck, cv))
         g = rk.shape[2]
         qr = q.reshape(b, 1, g, h_loc // g, -1)
-        w = _gqa_weights(qr, rk, cfg.resolved_head_dim ** -0.5, valid)
-        out = torch.einsum("bgrqk,bkgd->bqgrd", w, rv)
+        scale = cfg.resolved_head_dim ** -0.5
+        if cap == whole:
+            w = _gqa_weights(qr, rk, scale, valid)
+            out = torch.einsum("bgrqk,bkgd->bqgrd", w, rv)
+        else:
+            logits = torch.einsum("bqgrd,bkgd->bgrqk", qr.float(),
+                                  rk.float()) * scale
+            w = spmd.seq_softmax(torch.where(valid, logits, MASKED))
+            out = spmd.seq_sum(torch.einsum("bgrqk,bkgd->bqgrd",
+                                            w.to(qr.dtype), rv))
         out = out.reshape(b, 1, h_loc, -1)
         new_cache = {"k": ck, "v": cv, "length": ln + 1}
 

@@ -10,6 +10,22 @@ runs as a python loop over chunks (the reference's ``lax.scan``); the heavy
 intra-chunk products are batched over every chunk at once.
 
 Single-token decode is the pure recurrence on (conv_state, ssm_state).
+
+Under a sharded step (`training.spmd`) whose 'model' axis splits
+``ssm_inner``, `wz` and `wx` are column-parallel and `out_proj` is
+row-parallel, ending in `spmd.reduce_model`. Where the column blocks hold
+whole heads the SSD scan, the D skip and the ssm state run on the rank's
+heads, and the gated RMSNorm's sum of squares is summed over 'model';
+elsewhere (heads that 'model' does not divide) `z` and `x` are gathered
+whole, every rank runs every head, and each keeps its own columns before
+the norm's weight. `wbc`, `wdt`, `a_log`, `d_skip` and `dt_bias` are
+replicated over 'model' and enter it (their gradients summed). The conv
+leaves split their concatenated [x | B | C] dim evenly, which does not
+follow the heads, so they are gathered whole over 'model'
+(`spmd.gather_model`, whose backward reduce-scatters onto the block) and
+a rank takes its own x columns and all of B/C; the decode cache's conv
+state is gathered for the step and the rank's block of the new state is
+stored back.
 """
 
 from __future__ import annotations
@@ -19,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.params import ParamSpec
+from repro_torch.training import spmd
 
 F32 = torch.float32
 
@@ -121,21 +138,55 @@ def mamba_block(pp, cfg: ArchConfig, x, *, cache=None, chunk: int = 256):
     """x (B,L,D) -> (y, new_cache). cache = {"conv","ssm","length"} for
     decode (L == 1)."""
     b, l, d = x.shape
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    di, n = cfg.d_inner, cfg.ssm_state
     p = cfg.ssm_head_dim
+    conv_dim = di + 2 * n
+    di_loc = pp["wz"].shape[1]
+    tp = di_loc != di                   # 'model' splits ssm_inner
+    whole_heads = di_loc % p == 0       # the column blocks hold whole heads
+    c0 = spmd.model_coord() * di_loc if tp else 0
+    wbc, wdt = pp["wbc"], pp["wdt"]
+    a_log, d_skip, dt_bias = pp["a_log"], pp["d_skip"], pp["dt_bias"]
+    if tp:
+        # leaves replicated over 'model', used on this rank's heads
+        x, wbc, wdt, a_log, d_skip, dt_bias = map(
+            spmd.enter_model, (x, wbc, wdt, a_log, d_skip, dt_bias))
+    conv_w, conv_b = pp["conv_w"], pp["conv_b"]
+    if conv_w.shape[1] != conv_dim:
+        conv_w = spmd.gather_model(conv_w, 1)
+        conv_b = spmd.gather_model(conv_b, 0)
     z = x @ pp["wz"]
     xs = x @ pp["wx"]
-    bcmat = x @ pp["wbc"]
-    dt = x @ pp["wdt"]
-    a = -torch.exp(pp["a_log"])                     # (H,) negative
-    dt = F.softplus(dt.float() + pp["dt_bias"])     # (B,L,H)
+    bcmat = x @ wbc
+    dt = x @ wdt
+    own = tp and whole_heads            # x columns c0 .. c0 + di_loc only
+    if tp and not whole_heads:
+        z, xs = spmd.gather_model(z, -1), spmd.gather_model(xs, -1)
+    if own:
+        heads = slice(c0 // p, (c0 + di_loc) // p)
+        a_log, d_skip, dt_bias = a_log[heads], d_skip[heads], dt_bias[heads]
+        dt = dt[..., heads]
+        cols = torch.cat([torch.arange(c0, c0 + di_loc, device=x.device),
+                          torch.arange(di, conv_dim, device=x.device)])
+        conv_w, conv_b = conv_w[:, cols], conv_b[cols]
+    a = -torch.exp(a_log)                           # (H,) negative
+    dt = F.softplus(dt.float() + dt_bias)           # (B,L,H)
 
+    xs_in = xs
     xbc = torch.cat([xs, bcmat], dim=-1)
-    conv_state = cache["conv"] if cache is not None else None
-    xbc, new_conv = _causal_conv(xbc, pp["conv_w"], pp["conv_b"], conv_state)
-    xs, bmat, cmat = (xbc[..., :di], xbc[..., di:di + n],
-                      xbc[..., di + n:])
-    xh = xs.reshape(b, l, h, p)
+    conv_state = None
+    if cache is not None:
+        conv_state = cache["conv"]
+        if conv_state.shape[-1] != conv_dim:
+            conv_state = spmd.gather_model(conv_state, -1)
+        whole_state = conv_state
+        if own:
+            conv_state = conv_state[..., cols]
+    xbc, new_conv = _causal_conv(xbc, conv_w, conv_b, conv_state)
+    dx = xs.shape[-1]
+    xs, bmat, cmat = (xbc[..., :dx], xbc[..., dx:dx + n],
+                      xbc[..., dx + n:])
+    xh = xs.reshape(b, l, dx // p, p)
 
     if cache is None:
         y = ssd_chunked(xh, dt, a, bmat, cmat, chunk)
@@ -150,13 +201,30 @@ def mamba_block(pp, cfg: ArchConfig, x, *, cache=None, chunk: int = 256):
         s = dec[..., None, None] * s + outer
         y = torch.einsum("bn,bhnp->bhp", cmat[:, 0].float(), s)
         y = y[:, None].to(x.dtype)                  # (B,1,H,P)
+        if own:     # the new state holds every rank's x columns
+            step_in = torch.cat([spmd.gather_model(xs_in, -1), bcmat],
+                                dim=-1)
+            new_conv = torch.cat([whole_state, step_in],
+                                 dim=1)[:, -whole_state.shape[1]:]
+        width = cache["conv"].shape[-1]
+        if width != conv_dim:       # store this rank's block back
+            new_conv = new_conv.narrow(-1, spmd.model_coord() * width,
+                                       width)
         new_cache = {"conv": new_conv, "ssm": s,
                      "length": cache["length"] + 1}
 
-    y = y + xh * pp["d_skip"][:, None].to(x.dtype)
-    y = y.reshape(b, l, di)
+    y = y + xh * d_skip[:, None].to(x.dtype)
+    y = y.reshape(b, l, dx)
     # gated RMSNorm (mamba2's norm before out_proj)
     yf = y.float() * F.silu(z.float())
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
-    yf = yf * torch.rsqrt(var + cfg.norm_eps) * pp["norm"]
-    return yf.to(x.dtype) @ pp["out_proj"], new_cache
+    if own:      # the mean over all of d_inner: the sum over 'model'
+        var = spmd.sum_over_model(
+            torch.sum(yf * yf, dim=-1, keepdim=True)) / di
+    else:
+        var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    yf = yf * torch.rsqrt(var + cfg.norm_eps)
+    if tp and not whole_heads:
+        yf = yf[..., c0:c0 + di_loc]
+    yf = yf * pp["norm"]
+    out = yf.to(x.dtype) @ pp["out_proj"]
+    return (spmd.reduce_model(out) if tp else out), new_cache

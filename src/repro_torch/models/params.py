@@ -68,6 +68,10 @@ def sorted_leaves(tree) -> list:
     return [tree]
 
 
+# the threads that draw a tree's leaves (`tree_init`, `sharding.init_blocks`)
+INIT_WORKERS = max(1, min(8, os.cpu_count() or 1))
+
+
 def init_array(s: ParamSpec, seed: int, i: int) -> np.ndarray:
     """Leaf `i`'s float32 host array, drawn as the reference draws it:
     ones (or zeros at ``init_scale=0``) for vectors, else normal over the
@@ -81,14 +85,14 @@ def init_array(s: ParamSpec, seed: int, i: int) -> np.ndarray:
     return rng.standard_normal(s.shape).astype(np.float32) * std
 
 
-def _sorted_build(spec_tree, leaf):
+def sorted_build(spec_tree, leaf):
     """`spec_tree` with each spec replaced by ``leaf(spec)``, called in
     JAX's flattening order; dicts come back with their keys sorted."""
     if isinstance(spec_tree, dict):
-        return {k: _sorted_build(spec_tree[k], leaf)
+        return {k: sorted_build(spec_tree[k], leaf)
                 for k in sorted(spec_tree)}
     if isinstance(spec_tree, (list, tuple)):
-        return type(spec_tree)(_sorted_build(v, leaf) for v in spec_tree)
+        return type(spec_tree)(sorted_build(v, leaf) for v in spec_tree)
     return leaf(spec_tree)
 
 
@@ -106,24 +110,23 @@ def tree_init(spec_tree, seed: int = 0, device=None):
     """
     device = resolve_device(device)
     specs = sorted_leaves(spec_tree)
-    workers = max(1, min(8, os.cpu_count() or 1))
-    with ThreadPoolExecutor(max_workers=workers) as pool:
+    with ThreadPoolExecutor(max_workers=INIT_WORKERS) as pool:
         arrays = pool.map(lambda i: init_array(specs[i], seed, i),
                           range(len(specs)))
-        return _sorted_build(spec_tree, lambda s: torch.from_numpy(
+        return sorted_build(spec_tree, lambda s: torch.from_numpy(
             next(arrays)).to(device=device, dtype=s.torch_dtype))
 
 
 def tree_sds(spec_tree):
     """The `TensorSpec` of every leaf, dicts with their keys sorted as
     `tree_init`'s."""
-    return _sorted_build(spec_tree, lambda s: s.sds)
+    return sorted_build(spec_tree, lambda s: s.sds)
 
 
 def tree_abstract(spec_tree):
     """`tree_init`'s tree as meta tensors: its structure, shapes and dtypes
     and no storage (what a checkpoint restores into)."""
-    return _sorted_build(spec_tree, lambda s: torch.empty(
+    return sorted_build(spec_tree, lambda s: torch.empty(
         s.shape, dtype=s.torch_dtype, device="meta"))
 
 

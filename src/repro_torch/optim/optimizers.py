@@ -11,7 +11,8 @@ update, and ``-lr_t * u`` cast back to the parameter dtype (which
 `torch.optim.AdamW` does not). Adafactor: momentum-free, row and column
 second moments for every leaf of two or more dims (``{"vr", "vc"}``), a
 full one for vectors (``{"v"}``), RMS update clipping and a step relative
-to the parameter's RMS.
+to the parameter's RMS; under a sharded step its means run on the blocks
+(``update(..., means=)``).
 
 Step counts and learning rates are 0-d float32 tensors on the host; a 0-d
 host tensor multiplies a CUDA tensor without a sync.
@@ -145,6 +146,29 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
     return Optimizer(init, update)
 
 
+def is_moments(x) -> bool:
+    """Whether `x` is one leaf's Adafactor state (``{"vr", "vc"}`` or
+    ``{"v"}``)."""
+    return isinstance(x, dict) and ("v" in x or "vr" in x)
+
+
+class _Means:
+    """One process's means (the interface of `training.spmd.BlockMeans`
+    on whole leaves)."""
+
+    @staticmethod
+    def mean(x, dims, pdims, keepdim: bool = False):
+        if dims is None:
+            return torch.mean(x)
+        return torch.mean(x, dim=dims, keepdim=keepdim)
+
+    @staticmethod
+    def vc_in(vc):
+        return vc
+
+    vc_out = vc_in
+
+
 def adafactor(lr=1e-2, decay=0.8, eps1=1e-30, eps2=1e-3,
               clip_threshold=1.0) -> Optimizer:
     """Shazeer & Stern 2018, momentum-free: O(n+m) state for (n,m) matrices."""
@@ -163,38 +187,45 @@ def adafactor(lr=1e-2, decay=0.8, eps1=1e-30, eps2=1e-3,
             return {"v": zeros(p.shape)}
         return tree_map(one, params)
 
-    def is_state(x) -> bool:
-        return isinstance(x, dict) and ("v" in x or "vr" in x)
-
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, means=None):
+        """`means`, under a sharded step: per leaf (`tree_leaves` order)
+        a `training.spmd.BlockMeans`, whose means over this rank's blocks
+        equal the global leaf's."""
         step_f = _f32(step) + 1.0
         beta = 1.0 - step_f ** (-decay)
         lr_t = lr_fn(step)
 
-        def upd(g, s, p):
+        def upd(g, s, p, m):
             g = g.float()
             g2 = g * g + eps1
+            n = g.ndim
+            mean = _Means() if m is None else m
             if _factored(g.shape):
-                vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                rfac = (vr / torch.mean(vr, dim=-1, keepdim=True))[..., None]
+                vr = beta * s["vr"] + (1 - beta) * mean.mean(
+                    g2, -1, (n - 1,))
+                vc = beta * mean.vc_in(s["vc"]) + (1 - beta) * mean.mean(
+                    g2, -2, (n - 2,))
+                rfac = (vr / mean.mean(vr, -1, (n - 2,),
+                                       keepdim=True))[..., None]
                 u = g * torch.rsqrt(rfac * vc[..., None, :] + eps1)
-                new_s = {"vr": vr, "vc": vc}
+                new_s = {"vr": vr, "vc": mean.vc_out(vc)}
             else:
                 v = beta * s["v"] + (1 - beta) * g2
                 u = g * torch.rsqrt(v + eps1)
                 new_s = {"v": v}
             # update clipping (RMS)
-            rms_u = torch.sqrt(torch.mean(u * u) + eps1)
+            every = tuple(range(n))
+            rms_u = torch.sqrt(mean.mean(u * u, None, every) + eps1)
             u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
-            scale = torch.clamp(torch.sqrt(torch.mean(
-                p.float() ** 2)), min=eps2)  # relative step size
+            scale = torch.clamp(torch.sqrt(mean.mean(
+                p.float() ** 2, None, every)), min=eps2)  # relative step
             return (-lr_t * scale * u).to(p.dtype), new_s
 
-        out = [upd(*t) for t in zip(tree_leaves(grads),
-                                    tree_leaves(state, is_state),
-                                    tree_leaves(params))]
+        leaves = tree_leaves(grads)
+        out = [upd(*t) for t in zip(leaves, tree_leaves(state, is_moments),
+                                    tree_leaves(params),
+                                    means or [None] * len(leaves))]
         return (tree_unflatten(grads, [o[0] for o in out]),
                 tree_unflatten(grads, [o[1] for o in out]))
 

@@ -22,13 +22,15 @@ sharded LM step of `training.spmd`). On a mesh of one process's devices
 it stores each leaf whole where every device is one device (the one card,
 or ``[cpu] * k`` in tests), and refuses a real split over distinct
 devices: one process never splits a leaf, the ranks of a process mesh
-do.
+do. `init_blocks` draws seeded weights (`params.tree_init`'s) straight
+into a rank's blocks, one leaf at a time a thread.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,7 +38,9 @@ import torch
 from repro_torch.distributed import process
 from repro_torch.distributed.process import ProcessDevice
 from repro_torch.launch.mesh import Mesh, batch_axes
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import (INIT_WORKERS, ParamSpec, init_array,
+                                      sorted_build, sorted_leaves,
+                                      tree_init)
 from repro_torch.optim.optimizers import tree_map, tree_paths
 
 LOGICAL_RULES: dict[str | None, str | None] = {
@@ -319,3 +323,23 @@ def place(tree, shardings):
     if is_process_mesh(shardings.mesh):
         return shard(tree, shardings).to(device_for(shardings))
     return tree.to(device_for(shardings))
+
+
+def init_blocks(spec_tree, seed: int, shardings):
+    """``place(params.tree_init(spec_tree, seed, "cpu"), shardings)``,
+    bitwise. On a mesh of ranks each of a few threads draws a leaf
+    (`params.init_array`), places this rank's block of it and frees the
+    rest before it draws the next, so a rank's host holds about one leaf
+    a thread beside its blocks, not the whole tree."""
+    sh = sorted_leaves(shardings)
+    if not is_process_mesh(sh[0].mesh):
+        return place(tree_init(spec_tree, seed, "cpu"), shardings)
+    specs = sorted_leaves(spec_tree)
+
+    def one(i):
+        whole = torch.from_numpy(init_array(specs[i], seed, i))
+        return place(whole.to(specs[i].torch_dtype), sh[i])
+
+    with ThreadPoolExecutor(max_workers=INIT_WORKERS) as pool:
+        blocks = pool.map(one, range(len(specs)))
+        return sorted_build(spec_tree, lambda _: next(blocks))

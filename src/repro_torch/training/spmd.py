@@ -30,6 +30,22 @@ reference's layouts imply a collective:
 - `norm_sq_sum`: the gradients' global squared norm, each element
   counted once (a leaf's block counts on the ranks at coordinate 0 of
   every axis that does not split it), all-reduced over the mesh.
+- `gather_model` (Mamba2's conv leaves and conv state, whose 'model'
+  blocks do not follow the heads): an all-gather over 'model' whose
+  gradient is reduce-scattered back onto the block; `sum_over_model`
+  (the gated norm's sum of squares over a split ``d_inner``): an
+  all-reduce whose gradient is all-reduced too; `once_over_model` (the
+  MoE load-balance loss every model rank computes whole): the gradient
+  divided by the 'model' size, so that its sum over 'model' counts once.
+- `batch_counts` (MoE routing in the global token order): one all-gather
+  of each batch shard's per-expert counts over the batch axes.
+- `seq_softmax` / `seq_sum` (batch-1 decode whose KV slots split over
+  'data', `decode_layout`): the flash-decoding combine of the ranks'
+  softmax partials.
+- `BlockMeans` (Adafactor on blocks): a mean over dimensions a mesh axis
+  may split, as a sum all-reduced over exactly those axes over the
+  global count, and the relayout of a moment whose stored layout is not
+  the one its computation gives.
 
 Every collective of a rank is counted in `COUNTER` by kind, in the
 reference's convention (`repro.launch.roofline.collective_bytes`: an
@@ -45,13 +61,16 @@ same calls.
 
 Every rank issues the same collectives in the same order (the backward
 and its re-gathers included), since every rank runs the same program on
-blocks of equal shapes. Mixture-of-experts and Mamba2 layers, and
-Adafactor, refuse a mesh with an axis above 1 (`refuse_unported`).
+blocks of equal shapes. Every block and optimizer the reference splits is
+split: attention and MLPs, Mamba2 over its heads, mixture-of-experts
+over its experts (or their hidden columns), Adafactor's factored
+moments, and the KV sequence of a batch-1 decode over 'data'.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import math
@@ -67,9 +86,6 @@ from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.training import sharding as shd
 
 KINDS = ("all-gather", "reduce-scatter", "all-reduce")
-UNPORTED = ("the sharded LM step splits dense attention and MLP blocks "
-            "only; {what} on a mesh with an axis above 1 waits for "
-            "ROADMAP.md queue 1, item 14a2 (it runs on a 1x1 mesh)")
 
 
 @dataclasses.dataclass
@@ -117,13 +133,16 @@ def counting():
 class Layout:
     """This rank's place on a mesh: its coordinate and group along each
     axis (and along the batch axes), and how tensors cross (the process
-    group's backend, or ``"virtual"``: count only)."""
+    group's backend, or ``"virtual"``: count only). `seq_len`, set by
+    `decode_layout` only, is the KV cache's global length under a batch-1
+    decode step (its rows replicated, its KV slots split over 'data')."""
 
     def __init__(self, mesh: Mesh, groups: dict, transport: str):
         self.mesh = mesh
         self.groups = groups
         self.transport = transport
         self.batch = batch_axes(mesh)
+        self.seq_len = 0
 
     @property
     def split(self) -> bool:
@@ -175,6 +194,16 @@ def layout_of(mesh: Mesh) -> Layout | None:
     return None
 
 
+def decode_layout(lay: Layout, seq_len: int) -> Layout:
+    """`lay` for a batch-1 decode step against a `seq_len`-slot cache
+    (`sharding.cache_shardings(seq_shard=True)`): the one row is every
+    rank's, and a KV cache whose slots 'data' divides holds this rank's
+    contiguous block of them."""
+    out = copy.copy(lay)
+    out.seq_len = seq_len
+    return out
+
+
 _ACTIVE: list = [None]
 
 
@@ -193,25 +222,6 @@ def use(layout: Layout | None):
         yield layout
     finally:
         _ACTIVE[0] = before
-
-
-def refuse_unported(cfg, layout: Layout | None, *, optimizer: bool = False):
-    """Raise `NotImplementedError` where `layout` splits and `cfg` has a
-    block or optimizer the sharded step does not split yet."""
-    if layout is None or not layout.split:
-        return
-    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
-    what = []
-    if "mamba" in kinds:
-        what.append("a Mamba2 layer (ssm_inner over 'model')")
-    if any(cfg.is_moe_layer(i) for i in range(cfg.n_layers)):
-        what.append("a mixture-of-experts layer (experts over 'model', "
-                    "capacity from the global token count)")
-    if optimizer and cfg.optimizer != "adamw":
-        what.append(f"the {cfg.optimizer} optimizer's factored moments")
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: " + UNPORTED.format(what=" and ".join(what)))
 
 
 # ---------------------------------------------------------------------------
@@ -375,6 +385,28 @@ class _ReduceModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lay, dim):
+        ctx.lay, ctx.dim = lay, dim
+        return all_gather(lay, "model", x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(ctx.lay, "model", g, ctx.dim), None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
 def _batch_size(lay: Layout) -> int:
     return lay.size(lay.batch)
 
@@ -418,6 +450,83 @@ def reduce_model(x: torch.Tensor) -> torch.Tensor:
     if lay is None or lay.size("model") == 1:
         return x
     return _ReduceModel.apply(x, lay)
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`x`, this rank's block along 'model' of dim `dim`, whole (the
+    ranks' blocks in coordinate order); its gradient summed over 'model'
+    and cut back to the block (a reduce-scatter)."""
+    lay = active()
+    if lay is None or lay.size("model") == 1:
+        return x
+    return _GatherModel.apply(x, lay, dim % x.ndim)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the 'model' ranks' partial `x` where each rank then uses
+    it on its own share: the gradient is summed over 'model' as well."""
+    return enter_model(reduce_model(x))
+
+
+def once_over_model(x: torch.Tensor) -> torch.Tensor:
+    """Identity; the gradient divided by the 'model' size. For a term
+    every model rank computes whole from inputs that enter 'model'
+    (`enter_model` sums their gradients): summed, it counts once."""
+    lay = active()
+    if lay is None or lay.size("model") == 1:
+        return x
+    return _ScaleGrad.apply(x, 1.0 / lay.size("model"))
+
+
+# ---------------------------------------------------------------------------
+# the global token order, the KV sequence over 'data'
+# ---------------------------------------------------------------------------
+
+def row_shards() -> int:
+    """How many shards the global batch's rows are split into: the batch
+    axes' size; 1 in one process and under a batch-1 decode step, whose
+    row every rank holds."""
+    lay = active()
+    if lay is None or lay.seq_len:
+        return 1
+    return _batch_size(lay)
+
+
+def batch_counts(counts: torch.Tensor):
+    """``(before, total)`` of this batch shard's per-expert `counts` (E,):
+    the counts of the shards before it in coordinate order over the batch
+    axes (the order of the global rows, `local_rows`) and the global
+    counts, from one all-gather. In one process: zeros and `counts`."""
+    if row_shards() == 1:
+        return torch.zeros_like(counts), counts
+    lay = active()
+    every = all_gather(lay, lay.batch, counts[None], 0)
+    return every[:lay.coord(lay.batch)].sum(0), every.sum(0)
+
+
+def seq_block(whole: int, cap: int) -> int:
+    """The first global slot of this rank's `cap` slots of a `whole`-slot
+    KV cache: under `decode_layout` a cache split over 'data' holds a
+    contiguous block a rank, else every slot (0)."""
+    if cap == whole:
+        return 0
+    return active().coord("data") * cap
+
+
+def seq_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """Softmax weights over the last dim of this rank's slots `logits`
+    (float32), normalized over every rank's slots along 'data': the
+    maximum all-reduced (max), then the sum of exponentials."""
+    lay = active()
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    m = all_reduce(lay, "data", m, op="max")
+    e = torch.exp(logits - m)
+    return e / all_reduce(lay, "data", torch.sum(e, dim=-1, keepdim=True))
+
+
+def seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over 'data' of the ranks' partial attention outputs."""
+    return all_reduce(active(), "data", x)
 
 
 # ---------------------------------------------------------------------------
@@ -528,3 +637,89 @@ def norm_sq_sum(tree, shardings):
         return all_reduce_world(lay, total)
 
     return sq_sum
+
+
+# ---------------------------------------------------------------------------
+# Adafactor on blocks
+# ---------------------------------------------------------------------------
+
+def _split_axes(lay: Layout, spec: tuple, dims) -> list[str]:
+    """The mesh axes above 1 that split any of `dims` under `spec`."""
+    return [a for d in dims if d < len(spec) for a in shd._names(spec[d])
+            if lay.size(a) > 1]
+
+
+def relayout(lay: Layout, x: torch.Tensor, src: tuple,
+             dst: tuple) -> torch.Tensor:
+    """A block of layout `src` (a partition spec) as this rank's block of
+    the same tensor under `dst`: each dim whose axes differ gathered
+    whole over `src`'s axes, then cut to `dst`'s coordinate."""
+    for i, (a, b) in enumerate(zip(src, dst)):
+        if shd._names(a) == shd._names(b):
+            continue
+        for ax in reversed(shd._names(a)):
+            x = all_gather(lay, ax, x, i)
+        n, c = 1, 0
+        for ax in shd._names(b):
+            n, c = n * lay.size(ax), c * lay.size(ax) + lay.coord(ax)
+        if n > 1:
+            x = x.narrow(i, c * (x.shape[i] // n), x.shape[i] // n)
+    return x
+
+
+class BlockMeans:
+    """Means over a parameter leaf's block that equal the global leaf's:
+    the block's sum all-reduced over exactly the mesh axes that split the
+    reduced dims (from the leaf's partition spec), over the global count;
+    a plain mean where no axis splits them. `vc_in` / `vc_out` move
+    Adafactor's column moment between the layout its computation gives
+    (the parameter's spec without dim -2) and the one it is stored in
+    (`sharding.opt_state_shardings`, which the reference matches by shape
+    and so gives a square leaf's column moment its row layout)."""
+
+    def __init__(self, lay: Layout, shape: tuple, spec: tuple,
+                 vc_spec: tuple | None):
+        self.lay, self.shape, self.spec = lay, tuple(shape), tuple(spec)
+        self.vc_natural = self.spec[:-2] + self.spec[-1:]
+        self.vc_stored = vc_spec
+
+    @property
+    def vc_block(self) -> tuple:
+        """The shape of this rank's stored block of the column moment."""
+        return shd.local_shape(self.shape[:-2] + self.shape[-1:],
+                               self.vc_stored, self.lay.mesh)
+
+    def mean(self, x: torch.Tensor, dims, pdims, keepdim: bool = False):
+        """The mean of block `x` over its `dims` (None: all), which are
+        the parameter's dims `pdims`."""
+        axes = _split_axes(self.lay, self.spec, pdims)
+        if not axes:
+            if dims is None:
+                return torch.mean(x)
+            return torch.mean(x, dim=dims, keepdim=keepdim)
+        s = torch.sum(x) if dims is None else torch.sum(
+            x, dim=dims, keepdim=keepdim)
+        for a in axes:
+            s = all_reduce(self.lay, a, s)
+        return s / math.prod(self.shape[d] for d in pdims)
+
+    def vc_in(self, vc: torch.Tensor) -> torch.Tensor:
+        return relayout(self.lay, vc, self.vc_stored, self.vc_natural)
+
+    def vc_out(self, vc: torch.Tensor) -> torch.Tensor:
+        return relayout(self.lay, vc, self.vc_natural, self.vc_stored)
+
+
+def block_means(lay: Layout, params, specs, shardings,
+                opt_shardings) -> list:
+    """A `BlockMeans` on `lay` per leaf of `params` (blocks, in
+    `tree_leaves` order) from the same-structured trees of `ParamSpec`s
+    (global shapes), their `NamedSharding`s, and the optimizer state's
+    shardings (Adafactor's ``{"vr", "vc"}`` or ``{"v"}`` a leaf)."""
+    def one(_, spec, sh, opt_sh):
+        vc = opt_sh.get("vc")
+        return BlockMeans(lay, spec.shape, sh.spec,
+                          None if vc is None else vc.spec)
+
+    return tree_leaves(tree_map(one, params, specs, shardings,
+                                opt_shardings))

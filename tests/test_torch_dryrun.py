@@ -7,8 +7,9 @@ equality on every runnable cell; `tree_sds`, `coeff_sds` and
 `extended_coeff_sds` leaf for leaf (shapes, dtype names). The counted
 FLOPs run the port's steps on meta tensors; the reference has no
 counterpart for them (XLA's cost analysis), so they are held to
-MODEL_FLOPS from below, and the model-flops route to exactly the configs
-whose step has an operator without a meta kernel.
+MODEL_FLOPS from below, for every config: MoE routing's counts are a
+scatter-add, which runs on meta tensors, so no cell takes the
+reference's model-flops route any more.
 """
 
 import dataclasses
@@ -154,13 +155,16 @@ def test_counted_flops_of_a_dense_train_cell_cover_model_flops():
 
 @pytest.mark.parametrize("arch", list(rc.ARCH_IDS))
 def test_model_flops_route_is_taken_exactly_for_moe(arch):
-    """A step with no meta kernel (MoE routing's torch.bincount) takes
-    the reference's model-flops route; every other config is counted."""
+    """The model-flops route is taken for no config now: MoE steps are
+    counted on meta tensors as every other (their routing's counts are a
+    scatter-add), their collectives too, and the count covers
+    MODEL_FLOPS."""
     cfg = dataclasses.replace(tc.reduced(tc.get(arch)), n_layers=2)
-    probed, *_, notes = dryrun.count_lm_cell(
+    probed, mflops, *_, notes = dryrun.count_lm_cell(
         cfg, "train_4k", dryrun.production_mesh(False), chunk=1024)
-    assert (probed is None) == bool(cfg.n_experts)
-    assert ("model-flops" in notes) == bool(cfg.n_experts)
+    assert probed is not None and "model-flops" not in notes
+    assert "counted/256dev" in notes and "not counted" not in notes
+    assert probed["flops"] * 256 >= mflops > 0
 
 
 def test_count_step_counts_what_the_layers_do():

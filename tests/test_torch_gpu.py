@@ -957,3 +957,26 @@ def test_lm_sharded_step_on_two_ranks_sharing_the_card(cuda):
         assert abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])), k
     assert abs(l1 - w1) <= 1e-4 * max(1.0, abs(w1))
     assert out[0]["params_rel"] <= 1e-5
+
+
+@pytest.mark.gpu
+def test_moe_and_mamba_sharded_on_two_ranks_sharing_the_card(cuda):
+    """Two gloo ranks on cuda:0, (1, 2) mesh, float32: reduced mixtral
+    (experts over 'model') and mamba2 (heads over 'model'), their train
+    step's metrics and next loss within 1e-4 x max(1, |ref|) of the
+    one-process step on the card, the new parameters within 1e-5 of each
+    leaf's norm, and `serve_lm`'s ids equal to one process's."""
+    import _mp_lm_ranks
+    from repro_torch.distributed import process
+    out = process.launch(_mp_lm_ranks.card2_moe_ssm, 2, (), timeout_s=300)
+    for arch, got in out[0].items():
+        (m, want), (l1, w1) = got["metrics"], got["loss1"]
+        for k in want:
+            assert abs(m[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])), \
+                (arch, k)
+        assert abs(l1 - w1) <= 1e-4 * max(1.0, abs(w1)), arch
+        assert got["params_rel"] <= 1e-5, arch
+    for rank in out:
+        for arch, got in rank.items():
+            sharded, one = got["ids"]
+            assert sharded.tolist() == one.tolist(), arch

@@ -22,10 +22,10 @@ reduced and in float32, while this process runs the reference:
   mesh; `serve_lm` of the five decoders on (1, 4) and (2, 2) against the
   one-process ids; a checkpoint written on (2, 2) restored on (1, 4) and
   in one process, gathered bitwise equal;
-- 2 ranks (`world2`): Mamba2 and MoE refused on a (1, 2) mesh with the
-  ROADMAP item; a (1, 1) mesh of each rank's own device under the group
-  (no collective) bitwise equal to the one-process step, the refused
-  configs included.
+- 2 ranks (`world2`): a (1, 1) mesh of each rank's own device under the
+  group (no collective) bitwise equal to the one-process step, for all
+  ten configs (the Mamba2, MoE and Adafactor ones are held on split
+  meshes in `test_torch_lm_sharded_moe_ssm.py`).
 
 The reference's jitted step also runs on the forced 4-device mesh for
 reduced llama on (2, 2) (the subprocess), and the sharded step is held
@@ -189,7 +189,7 @@ def run(tmp_path_factory, reference_run):
     """Both spawns' results and the reference's one-device steps,
     computed here while the ranks run."""
     ckpt = str(tmp_path_factory.mktemp("ckpt"))
-    states = {a: ref_state(a) for a in R.DENSE + R.REFUSED}
+    states = {a: ref_state(a) for a in R.DENSE + R.MOE_SSM}
     weights = {a: s[0] for a, s in states.items()}
     caches = {a: R.random_cache(R.f32(a)) for a in R.DENSE}
 
@@ -302,21 +302,13 @@ def test_sharded_step_matches_the_reference_on_its_mesh(run, reference):
     assert close(ours["loss1"], loss1)
 
 
-@pytest.mark.parametrize("arch", R.DENSE + R.REFUSED)
+@pytest.mark.parametrize("arch", R.DENSE + R.MOE_SSM)
 def test_one_by_one_mesh_is_the_one_process_step_bitwise(run, arch):
     for rank in run["two"]:
         got = rank["one"][arch]
         assert got["metrics"] and got["params"]
         assert not any(got["counted"].values())
         assert np.isfinite(got["loss"])
-
-
-@pytest.mark.parametrize("arch", R.REFUSED)
-def test_mamba_and_moe_refuse_a_split_mesh(run, arch):
-    for rank in run["two"]:
-        for what in ("train", "serve"):
-            msg = rank["refused"][arch, what]
-            assert msg is not None and "14a2" in msg, msg
 
 
 @pytest.mark.parametrize("shape", R.BYTES_MESHES)
