@@ -13,4 +13,5 @@
 * `traffic`   — HBM bytes of the port's kernels, from their schedules
 * `autotune`  — the paper's model-pruned search, measured or modeled
 * `registry`  — the port's persistent plan registry and plan translation
+* `trace`     — spans (while a profiler records) and counters of the port
 """

@@ -38,12 +38,15 @@ import os
 import tempfile
 
 from repro_torch.core import specs as devspecs
+from repro_torch.core import trace
 from repro_torch.core.mwd import MWDPlan
 from repro_torch.core.stencils import StencilSpec
 
 SCHEMA_VERSION = 1
 ENV_VAR = "REPRO_TORCH_PLAN_REGISTRY"
 DEFAULT_PATH = os.path.join(".repro_torch_cache", "plans.json")
+# the tuner's runs and seconds: the model fallback and plan translation
+TUNER = trace.counter("plan.tuner")
 
 
 def default_grid(spec: StencilSpec) -> tuple[int, int, int]:
@@ -348,9 +351,11 @@ class PlanRegistry:
             from repro_torch.core import autotune
             # cap D_w at the y extent: a diamond wider than the domain only
             # inflates the launch padding, never the score
-            res = autotune.autotune(spec, grid_shape, devices_x=devices_x,
-                                    chip=chip, word_bytes=word_bytes,
-                                    d_w_cap=grid_shape[1], batch=batch)
+            with TUNER.timed():
+                res = autotune.autotune(spec, grid_shape,
+                                        devices_x=devices_x, chip=chip,
+                                        word_bytes=word_bytes,
+                                        d_w_cap=grid_shape[1], batch=batch)
             self._memo[key] = (_sanitize(res.plan), "model")
         return self._memo[key]
 
@@ -394,33 +399,34 @@ def translate_entry(entry: RegistryEntry, op: StencilSpec, grid_shape, *,
          Nothing is measured.
 
     The result carries ``source="translated:<spec A>"`` and the target
-    spec's name and fingerprint.
+    spec's name and fingerprint. Counted under ``plan.tuner``.
     """
-    from repro_torch.core import autotune, models
+    with TUNER.timed():
+        from repro_torch.core import autotune, models
 
-    if not entry.spec or entry.spec == to_spec.name:
-        return None                       # nothing to translate
-    try:
-        from_spec = devspecs.get_spec(entry.spec)
-    except devspecs.SpecError:
-        return None                       # unknown source spec: refuse
-    plan = entry.plan
-    if not autotune._plan_valid(op, plan):
-        return None
-    if not models.smem_fits(op, plan.d_w, plan.n_f, grid_shape[2],
-                            word_bytes, to_spec):
-        return None
-    score_a = autotune.model_score(op, grid_shape, word_bytes, from_spec,
-                                   batch)(plan)
-    score_b = autotune.model_score(op, grid_shape, word_bytes, to_spec,
-                                   batch)(plan)
-    if not (math.isfinite(score_a) and math.isfinite(score_b)
-            and score_a > 0.0 and score_b > 0.0):
-        return None
-    return dataclasses.replace(
-        entry,
-        score=entry.score * (score_b / score_a),
-        source=f"translated:{entry.spec}",
-        fingerprint=devspecs.fingerprint(to_spec),
-        spec=to_spec.name,
-    )
+        if not entry.spec or entry.spec == to_spec.name:
+            return None                       # nothing to translate
+        try:
+            from_spec = devspecs.get_spec(entry.spec)
+        except devspecs.SpecError:
+            return None                       # unknown source spec: refuse
+        plan = entry.plan
+        if not autotune._plan_valid(op, plan):
+            return None
+        if not models.smem_fits(op, plan.d_w, plan.n_f, grid_shape[2],
+                                word_bytes, to_spec):
+            return None
+        score_a = autotune.model_score(op, grid_shape, word_bytes, from_spec,
+                                       batch)(plan)
+        score_b = autotune.model_score(op, grid_shape, word_bytes, to_spec,
+                                       batch)(plan)
+        if not (math.isfinite(score_a) and math.isfinite(score_b)
+                and score_a > 0.0 and score_b > 0.0):
+            return None
+        return dataclasses.replace(
+            entry,
+            score=entry.score * (score_b / score_a),
+            source=f"translated:{entry.spec}",
+            fingerprint=devspecs.fingerprint(to_spec),
+            spec=to_spec.name,
+        )

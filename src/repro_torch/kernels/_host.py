@@ -3,26 +3,18 @@
 The launchers of ``csrc/mwd.cu``, ``csrc/sweep.cu`` and ``csrc/fused.cu``
 share one C convention (``csrc/stencil_cell.cuh``): the stream type codes,
 the operator passed as tap, group and value tables, and pointers as Python
-ints. This module holds that convention, the launch counter each wrapper
-keeps, the input checks and the edge padding the plain versions use.
+ints. This module holds that convention, the input checks and the edge
+padding the plain versions use.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.core import ir
-
-
-@dataclasses.dataclass
-class LaunchCounter:
-    """Plain count of kernel launches, so a run can show it used the kernel."""
-
-    count: int = 0
 
 
 # stream / accumulator type codes of stencil_cell.cuh

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import ir, precision
+from repro_torch.core import ir, precision, trace
 from repro_torch.core.mwd import MWDPlan
 from repro_torch.core.stencils import StencilSpec
 from repro_torch.kernels import ref as _ref
@@ -46,18 +46,28 @@ def resolve_plan(spec: StencilSpec, state, plan, batch: int = 1) -> MWDPlan:
     the hardware fingerprint: a tuned entry, else a plan tuned under
     another device spec and translated, else the model-scored tuner.
     Single-device launches resolve with ``devices_x=1``; `batch` > 1
-    selects the ``b<B>`` key.
+    selects the ``b<B>`` key. The source is counted (`count_plan`).
     """
     if isinstance(plan, MWDPlan):
+        count_plan("explicit")
         return plan
     if plan != "auto":
         raise ValueError(f"plan must be an MWDPlan or 'auto', got {plan!r}")
     from repro_torch.core import registry
     cur = state[0]
-    resolved, _source = registry.resolve_plan(
-        spec, tuple(cur.shape[-3:]), word_bytes=cur.element_size(),
-        devices_x=1, batch=batch)
+    with trace.span("girih.plan"):
+        resolved, source = registry.resolve_plan(
+            spec, tuple(cur.shape[-3:]), word_bytes=cur.element_size(),
+            devices_x=1, batch=batch)
+    count_plan(source)
     return resolved
+
+
+def count_plan(source: str) -> None:
+    """Count one plan resolution under its source's counter:
+    ``plan.registry``, ``plan.translated``, ``plan.model`` or
+    ``plan.explicit`` (`core.registry.PlanRegistry.resolve`'s sources)."""
+    trace.counter("plan." + source.split(":")[0]).count += 1
 
 
 def _split_coeffs(spec: StencilSpec, coeffs):
@@ -96,40 +106,38 @@ def mwd(spec: StencilSpec, state, coeffs, n_steps: int,
     streams are cast before the launch. acc: accumulator policy,
     ``"auto"`` (f32 for sub-32-bit streams), ``"native"`` or a dtype.
     """
-    if dtype is not None:
-        dt = precision.parse_dtype(dtype)
-        state = tuple(s.to(dt) for s in state)
-    if plan is not None:
-        p = resolve_plan(spec, state, plan)
-        d_w, n_f, fused = p.d_w, p.n_f, p.fused
-    arrays, scalars = _split_coeffs(spec, coeffs)
-    if dtype is not None and arrays is not None:
-        arrays = arrays.to(dt)
-    acc_dt = precision.resolve_acc(state[0].dtype, acc)
-    return stencil_mwd.mwd_run(spec, state, arrays, scalars, n_steps,
-                               d_w=d_w, n_f=n_f, fused=fused,
-                               acc_dtype=acc_dt)
+    with trace.span("girih.mwd", batch=1, steps=n_steps):
+        if dtype is not None:
+            dt = precision.parse_dtype(dtype)
+            state = tuple(s.to(dt) for s in state)
+        if plan is not None:
+            p = resolve_plan(spec, state, plan)
+            d_w, n_f, fused = p.d_w, p.n_f, p.fused
+        arrays, scalars = _split_coeffs(spec, coeffs)
+        if dtype is not None and arrays is not None:
+            arrays = arrays.to(dt)
+        acc_dt = precision.resolve_acc(state[0].dtype, acc)
+        return stencil_mwd.mwd_run(spec, state, arrays, scalars, n_steps,
+                                   d_w=d_w, n_f=n_f, fused=fused,
+                                   acc_dtype=acc_dt)
 
 
-def mwd_batched(spec: StencilSpec, states, coeffs, n_steps: int,
-                d_w: int = 8, n_f: int = 2, fused: bool = True,
-                plan: MWDPlan | str | None = None, dtype=None, acc="auto"):
-    """Advance B independent same-shaped grids in the same launches.
+def stack_batch(spec: StencilSpec, states, coeffs, dtype=None):
+    """`mwd_batched`'s inputs stacked: ``((cur, prev), arrays, scalars)``.
 
     `states` is a sequence of B ``(cur, prev)`` pairs or an already-stacked
     pair of ``(B, nz, ny, nx)`` tensors; `coeffs` is a **list** of B packed
     coefficient sets (array streams batch, scalars must be shared), one
     packed set applied to every request, or one packed set whose streams
     are already stacked ``(B, A, nz, ny, nx)``. Stacked inputs are used as
-    they are, with no copy. Returns batched ``(cur, prev)``, bitwise equal
-    to a per-item `mwd` loop.
+    they are, with no copy; `arrays` comes back ``(B, A, nz, ny, nx)`` (or
+    None). `dtype` casts levels and streams.
 
     A batch whose members disagree on dtype is refused unless `dtype=` is
     given: stacking would silently promote every member.
     """
     dt = precision.parse_dtype(dtype) if dtype is not None else None
-    if (isinstance(states, (tuple, list)) and len(states) == 2
-            and getattr(states[0], "ndim", 0) == 4):
+    if _stacked(states):
         cur, prev = states
         if dt is not None:
             cur, prev = cur.to(dt), prev.to(dt)
@@ -147,9 +155,6 @@ def mwd_batched(spec: StencilSpec, states, coeffs, n_steps: int,
         if dt is not None:
             cur, prev = cur.to(dt), prev.to(dt)
     b = cur.shape[0]
-    if plan is not None:
-        p = resolve_plan(spec, (cur[0],), plan, batch=b)
-        d_w, n_f, fused = p.d_w, p.n_f, p.fused
     if isinstance(coeffs, list):        # per-request packed coefficients
         if len(coeffs) != b:
             raise ValueError(f"{spec.name}: got {len(coeffs)} coefficient "
@@ -166,10 +171,34 @@ def mwd_batched(spec: StencilSpec, states, coeffs, n_steps: int,
                              f"{arrays.shape[0]} items, batch of {b}")
     if arrays is not None and dt is not None:
         arrays = arrays.to(dt)
-    acc_dt = precision.resolve_acc(cur.dtype, acc)
-    return stencil_mwd.mwd_run_batched(spec, (cur, prev), arrays, scalars,
-                                       n_steps, d_w=d_w, n_f=n_f,
-                                       fused=fused, acc_dtype=acc_dt)
+    return (cur, prev), arrays, scalars
+
+
+def _stacked(states) -> bool:
+    return (isinstance(states, (tuple, list)) and len(states) == 2
+            and getattr(states[0], "ndim", 0) == 4)
+
+
+def mwd_batched(spec: StencilSpec, states, coeffs, n_steps: int,
+                d_w: int = 8, n_f: int = 2, fused: bool = True,
+                plan: MWDPlan | str | None = None, dtype=None, acc="auto"):
+    """Advance B independent same-shaped grids in the same launches.
+
+    `states`, `coeffs` and `dtype` are `stack_batch`'s. Returns batched
+    ``(cur, prev)``, bitwise equal to a per-item `mwd` loop.
+    """
+    b = states[0].shape[0] if _stacked(states) else len(states)
+    with trace.span("girih.mwd", batch=b, steps=n_steps):
+        (cur, prev), arrays, scalars = stack_batch(spec, states, coeffs,
+                                                   dtype)
+        if plan is not None:
+            p = resolve_plan(spec, (cur[0],), plan, batch=b)
+            d_w, n_f, fused = p.d_w, p.n_f, p.fused
+        acc_dt = precision.resolve_acc(cur.dtype, acc)
+        return stencil_mwd.mwd_run_batched(spec, (cur, prev), arrays,
+                                           scalars, n_steps, d_w=d_w,
+                                           n_f=n_f, fused=fused,
+                                           acc_dtype=acc_dt)
 
 
 def naive(spec: StencilSpec, state, coeffs, n_steps: int):

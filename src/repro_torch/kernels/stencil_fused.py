@@ -36,15 +36,14 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import ir
+from repro_torch.core import ir, trace
 from repro_torch.core import stencils as st
 from repro_torch.kernels import _build
-from repro_torch.kernels._host import (LaunchCounter, TYPE_CODES,
-                                       check_inputs, check_kernel_inputs,
-                                       edge_pad, hoist_groups, op_tables,
-                                       ptr)
+from repro_torch.kernels._host import (TYPE_CODES, check_inputs,
+                                       check_kernel_inputs, edge_pad,
+                                       hoist_groups, op_tables, ptr)
 
-LAUNCHES = LaunchCounter()
+LAUNCHES = trace.counter("k3.launches")
 
 # Hopper (sm_90, the kernels' only target): dynamic shared memory one block
 # may opt into, shared memory of one SM, what the runtime reserves per

@@ -49,17 +49,18 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import ir, tiling
+from repro_torch.core import ir, tiling, trace
 from repro_torch.core import stencils as st
 from repro_torch.core.mwd import (K1Geometry, barrier_schedule,
                                    k1_geometry, sync_dirichlet_frame)
 from repro_torch.kernels import _build
-from repro_torch.kernels._host import (LaunchCounter, TYPE_CODES,
-                                         check_inputs, check_kernel_inputs,
-                                         edge_pad, op_tables, ptr)
+from repro_torch.kernels._host import (TYPE_CODES, check_inputs,
+                                         check_kernel_inputs, edge_pad,
+                                         op_tables, ptr)
 
 
-LAUNCHES = LaunchCounter()
+LAUNCHES = trace.counter("k1.launches")
+SYNCS = trace.counter("syncs")      # host waits on the device
 
 MAX_CLUSTER = 16        # MWD_MAX_CLUSTER of csrc/mwd.cu
 
@@ -120,44 +121,47 @@ def prepare(spec: st.StencilSpec, state, arrays, scalars, n_steps: int, *,
     CTAs a tile (1 to `MAX_CLUSTER`; None lets it choose); the plain
     version's result does not depend on it.
     """
-    if cluster is not None and not 1 <= cluster <= MAX_CLUSTER:
-        raise ValueError(f"cluster must be in 1..{MAX_CLUSTER}, got "
-                         f"{cluster}")
-    cur, prev = state
-    if acc_dtype is not None and acc_dtype == cur.dtype:
-        acc_dtype = None                # native accumulation: no casts
-    nz, ny, nx = cur.shape[-3:]
-    geo = k1_geometry(spec.radius, (nz, ny, nx), d_w, n_f, n_steps,
-                      fused=fused, interior=interior, y_domain=y_domain)
-    check_inputs(spec, cur, prev, arrays)
-    prev = sync_dirichlet_frame(cur, prev, spec.radius)
-    job = Job(op=spec, cur=cur, prev=prev, n_steps=n_steps)
-    if geo.comp.n_rows == 0:             # n_steps == 0: nothing to launch
+    with trace.span("girih.mwd.prepare"):
+        if cluster is not None and not 1 <= cluster <= MAX_CLUSTER:
+            raise ValueError(f"cluster must be in 1..{MAX_CLUSTER}, got "
+                             f"{cluster}")
+        cur, prev = state
+        if acc_dtype is not None and acc_dtype == cur.dtype:
+            acc_dtype = None            # native accumulation: no casts
+        nz, ny, nx = cur.shape[-3:]
+        geo = k1_geometry(spec.radius, (nz, ny, nx), d_w, n_f, n_steps,
+                          fused=fused, interior=interior, y_domain=y_domain)
+        check_inputs(spec, cur, prev, arrays)
+        prev = sync_dirichlet_frame(cur, prev, spec.radius)
+        job = Job(op=spec, cur=cur, prev=prev, n_steps=n_steps)
+        if geo.comp.n_rows == 0:         # n_steps == 0: nothing to launch
+            return job
+        pz, py, px = geo.pads
+        # x rows a multiple of 16 bytes, so the kernel streams them 16
+        # bytes at a time; the extra right-hand columns are never read
+        x_hi = px + (-(nx + 2 * px)) % (16 // cur.element_size())
+        pads = ((pz, geo.n_j * n_f - nz - pz), (py, py), (px, x_hi))
+        job.bufs = [edge_pad(cur, pads), edge_pad(prev, pads)]
+        job.coeff = arrays.contiguous() if spec.n_coeff_arrays else None
+        job.scalars = tuple(float(x) for x in scalars)
+        job.comp, job.bounds, job.pads = geo.comp, geo.bounds, geo.pads
+        job.n_f, job.n_j, job.fused = n_f, geo.n_j, fused
+        job.acc_dtype, job.cluster = acc_dtype, cluster
         return job
-    pz, py, px = geo.pads
-    # x rows a multiple of 16 bytes, so the kernel streams them 16 bytes at
-    # a time; the extra right-hand columns are never read
-    x_hi = px + (-(nx + 2 * px)) % (16 // cur.element_size())
-    pads = ((pz, geo.n_j * n_f - nz - pz), (py, py), (px, x_hi))
-    job.bufs = [edge_pad(cur, pads), edge_pad(prev, pads)]
-    job.coeff = arrays.contiguous() if spec.n_coeff_arrays else None
-    job.scalars = tuple(float(x) for x in scalars)
-    job.comp, job.bounds, job.pads = geo.comp, geo.bounds, geo.pads
-    job.n_f, job.n_j, job.fused, job.acc_dtype = n_f, geo.n_j, fused, acc_dtype
-    job.cluster = cluster
-    return job
 
 
 def finish(job: Job) -> tuple[torch.Tensor, torch.Tensor]:
     """Crop the padded grids and pick the parities: ``(cur, prev)``."""
     if job.bufs is None:
         return job.cur, job.prev
-    pz, py, px = job.pads
-    nz, ny, nx = job.cur.shape[-3:]
-    core = (..., slice(pz, pz + nz), slice(py, py + ny), slice(px, px + nx))
-    p = job.n_steps % 2
-    return (job.bufs[p][core].contiguous(),
-            job.bufs[1 - p][core].contiguous())
+    with trace.span("girih.mwd.finish"):
+        pz, py, px = job.pads
+        nz, ny, nx = job.cur.shape[-3:]
+        core = (..., slice(pz, pz + nz), slice(py, py + ny),
+                slice(px, px + nx))
+        p = job.n_steps % 2
+        return (job.bufs[p][core].contiguous(),
+                job.bufs[1 - p][core].contiguous())
 
 
 def run_plain(job: Job) -> None:
@@ -279,15 +283,14 @@ def run_kernel(job: Job) -> None:
     comp, op = job.comp, job.op
     nz_tot, nyp, nxp = job.bufs[0].shape[-3:]
     batch = job.bufs[0].numel() // (nz_tot * nyp * nxp)
-    taps, groups, values = op_tables(op, job.scalars, nyp * nxp, nxp)
-    taps3 = np.asarray([t.offset for _, members in op.groups
-                        for t in members], np.int32)
-    py = job.pads[1]
-    tables = torch.from_numpy(np.concatenate([
-        comp.parity, (comp.w0 + py).ravel(), comp.active.ravel(),
-        (comp.y0 + py).ravel(), (comp.y1 + py).ravel()]).astype(
-            np.int32)).to(dev)
-    geo = _geometry(job)
+    with trace.span("girih.mwd.tables"):
+        taps, groups, values = op_tables(op, job.scalars, nyp * nxp, nxp)
+        taps3 = np.asarray([t.offset for _, members in op.groups
+                            for t in members], np.int32)
+        py = job.pads[1]
+        tables = np.concatenate([
+            comp.parity, (comp.w0 + py).ravel(), comp.active.ravel(),
+            (comp.y0 + py).ravel(), (comp.y1 + py).ravel()]).astype(np.int32)
     lib = _mwd_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -303,12 +306,19 @@ def run_kernel(job: Job) -> None:
         _check(lib, rc, "launch")
         LAUNCHES.count += row_end - row_begin
 
-    if job.fused:
-        launch(0, comp.n_rows)
-    else:
-        for i in range(comp.n_rows):
-            job.bufs = [b.clone() for b in job.bufs]
-            launch(i, i + 1)
+    # the span opens before the upload, so no profiler event of the program
+    # lands in the drain that follows it
+    with trace.span("girih.mwd.launch"):
+        # a pageable upload: the host waits for the stream to drain
+        with SYNCS.timed("girih.sync"):
+            tables = torch.from_numpy(tables).to(dev)
+        geo = _geometry(job)
+        if job.fused:
+            launch(0, comp.n_rows)
+        else:
+            for i in range(comp.n_rows):
+                job.bufs = [b.clone() for b in job.bufs]
+                launch(i, i + 1)
 
 
 def run(job: Job) -> tuple[torch.Tensor, torch.Tensor]:

@@ -31,8 +31,8 @@ two-lane queue the server waits at most `--batch-window-ms` for up to
 at the class shape. Smaller grids ride under frozen-halo masking
 (`core.padding`), so every response equals its own unpadded `ops.mwd` run
 under the same plan. Telemetry (`--telemetry stdout` or ``jsonl:<path>``)
-reports per-bucket throughput, queue depth, padding waste and rolling
-latency percentiles.
+reports per-bucket throughput, queue depth, padding waste, each request's
+wait and latency percentiles over every request served.
 
 Plans resolve registry-first per (class, batch size) under the ``b<B>``
 key (`core.registry`; ``--registry PATH`` names the file, ``--spec`` the
@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.core import ir, padding, precision, scheduler
+from repro_torch.core import ir, padding, precision, scheduler, trace
 from repro_torch.core import registry as reg
 from repro_torch.core import specs as devspecs
 from repro_torch.core import stencils as stc
@@ -64,6 +64,8 @@ from repro_torch.launch import telemetry as tlm
 from repro_torch.models import lm
 from repro_torch.training import sharding as shd
 from repro_torch.training import steps as tsteps
+
+SYNCS = trace.counter("syncs")      # host waits on the device
 
 
 def prefill_into_cache(cfg, params, tokens, gen: int,
@@ -224,12 +226,18 @@ def _resolve(spec, plan, batch: int, shape, word: int, registry=None):
 
     ``"auto"`` resolves in `registry` (default: `reg.default_registry`);
     the source is the registry's (``registry:measured``, ``model``, ...).
+    The source is counted (`ops.count_plan`).
     """
     if plan == "auto":
         registry = registry or reg.default_registry()
-        return registry.resolve(spec, tuple(shape), word_bytes=word,
-                                devices_x=1, batch=batch)
-    return plan, "explicit"
+        with trace.span("girih.plan"):
+            plan, source = registry.resolve(spec, tuple(shape),
+                                            word_bytes=word, devices_x=1,
+                                            batch=batch)
+    else:
+        source = "explicit"
+    ops.count_plan(source)
+    return plan, source
 
 
 def _launch_batch(spec, states, coeffs_list, n_steps, plan, padded_shape,
@@ -253,18 +261,22 @@ def _launch_batch(spec, states, coeffs_list, n_steps, plan, padded_shape,
     run_spec = spec if exact else padding.masked_variant(spec)
     plan, source = _resolve(run_spec, plan, len(states), padded_shape,
                             states[0][0].element_size(), registry)
-    if exact:
-        cur, prev = ops.mwd_batched(spec, list(states), list(coeffs_list),
-                                    n_steps, plan=plan)
-        outs = [(cur[i], prev[i]) for i in range(len(states))]
-    else:
-        mop, stacked, packed = padding.pad_batch(spec, states, coeffs_list,
-                                                 padded_shape)
-        cur, prev = ops.mwd_batched(mop, stacked, packed, n_steps, plan=plan)
+    with trace.span("girih.serve.pad"):
+        if exact:
+            stacked, arrays, scalars = ops.stack_batch(
+                spec, list(states), list(coeffs_list))
+            packed = ir.join_coeffs(spec, arrays, scalars)
+        else:
+            run_spec, stacked, packed = padding.pad_batch(
+                spec, states, coeffs_list, padded_shape)
+    cur, prev = ops.mwd_batched(run_spec, stacked, packed, n_steps,
+                                d_w=plan.d_w, n_f=plan.n_f, fused=plan.fused)
+    with trace.span("girih.serve.crop"):
         outs = [padding.crop_state((cur[i], prev[i]), sh)
                 for i, sh in enumerate(shapes)]
     if cur.is_cuda:
-        torch.cuda.synchronize(cur.device)
+        with SYNCS.timed("girih.sync"):
+            torch.cuda.synchronize(cur.device)
     return outs, plan, source
 
 
@@ -300,12 +312,10 @@ def queue_summary(requests, records) -> dict:
                    for rid in rec["rids"]}
     served = [r for r in requests if r.rid in done_by_rid]
     lat = sorted(done_by_rid[r.rid] - r.arrival_s for r in served)
-    p50, p95, p99 = (np.percentile(lat, [50, 95, 99]) if lat
-                     else (0.0, 0.0, 0.0))
+    p50, p95, p99 = tlm.percentiles_ms(lat)
     sizes = [rec["size"] for rec in records]
     return {"served": served, "latencies_s": lat,
-            "p50_ms": float(p50) * 1e3, "p95_ms": float(p95) * 1e3,
-            "p99_ms": float(p99) * 1e3,
+            "p50_ms": p50, "p95_ms": p95, "p99_ms": p99,
             "deadline_misses": sum(done_by_rid[r.rid] > r.deadline_s
                                    for r in served),
             "batch_sizes": sizes,
@@ -352,6 +362,17 @@ def serve_queue(requests, *, max_batch: int = 4, batch_window_ms: float = 5.0,
     plan_source``). `registry` is where ``plan="auto"`` resolves (default:
     the process default registry). The launch-time estimator's dispatch
     is the device spec's measured `launch_s`.
+
+    Times are on the server's clock, which starts at ``clock0_s`` (a
+    `time.perf_counter` reading, in the ``summary`` event). A request waits
+    from its due time to its batch's close (the launch's start): ``busy_s``
+    until the later of its due time and its batch window's opening, then
+    ``window_s``; the ``launch`` event lists both beside ``rids``, and is
+    emitted as soon as the batch is done. While a profiler records
+    (`core.trace`), the loop keeps the spans ``girih.serve.idle`` (asleep,
+    nothing queued), ``girih.serve.window`` (the head waiting for mates),
+    ``girih.serve.launch`` (with ``girih.serve.pad``, ``girih.serve.crop``
+    and ``girih.sync`` inside) and one ``girih.serve.request`` a request.
     """
     lad = padding.parse_ladder(ladder)
     tele = tlm.make_telemetry(telemetry)
@@ -366,7 +387,8 @@ def serve_queue(requests, *, max_batch: int = 4, batch_window_ms: float = 5.0,
             for r in pending}
     results: dict[int, object] = {}
     records: list[dict] = []
-    t0 = time.perf_counter()
+    t0_ns = time.perf_counter_ns()
+    t0 = t0_ns / 1e9
 
     def now() -> float:
         return time.perf_counter() - t0
@@ -386,56 +408,70 @@ def serve_queue(requests, *, max_batch: int = 4, batch_window_ms: float = 5.0,
 
     while pending or len(queue):
         if not len(queue):
-            time.sleep(max(0.0, pending[0].arrival_s - now()))
+            with trace.span("girih.serve.idle"):
+                time.sleep(max(0.0, pending[0].arrival_s - now()))
         admit_upto(now())
         if queue.head() is None:
             continue
         head, lane = queue.head()
         key = keys[id(head)]
+        t_open = now()
         close = scheduler.window_close_s(
-            now(), batch_window_ms / 1e3, deadline_s=head.deadline_s,
+            t_open, batch_window_ms / 1e3, deadline_s=head.deadline_s,
             predicted_launch_s=est.predict(key, max_batch))
-        while True:
-            admit_upto(now())
-            mates = [r for r in queue.items() if keys[id(r)] == key]
-            if len(mates) >= max_batch:
-                mates = mates[:max_batch]
-                break
-            upcoming = [r for r in pending
-                        if keys[id(r)] == key and r.arrival_s <= close]
-            if not upcoming:
-                break
-            time.sleep(max(0.0, upcoming[0].arrival_s - now()))
+        with trace.span("girih.serve.window"):
+            while True:
+                admit_upto(now())
+                mates = [r for r in queue.items() if keys[id(r)] == key]
+                if len(mates) >= max_batch:
+                    mates = mates[:max_batch]
+                    break
+                upcoming = [r for r in pending
+                            if keys[id(r)] == key and r.arrival_s <= close]
+                if not upcoming:
+                    break
+                time.sleep(max(0.0, upcoming[0].arrival_s - now()))
         batch = mates
         queue.remove(batch)
-
-        t_launch = time.perf_counter()
-        outs, plan_used, source = _launch_batch(
-            head.spec, [r.state for r in batch], [r.coeffs for r in batch],
-            head.n_steps, plan, key[1], registry)
-        launch_s = time.perf_counter() - t_launch
-        done = now()
-        est.observe(key, len(batch), launch_s)
+        rids = [r.rid for r in batch]
         shapes = [tuple(r.state[0].shape) for r in batch]
         waste = padding.padding_waste(shapes, key[1])
+
+        with trace.span("girih.serve.launch", rids=rids):
+            t_launch = time.perf_counter()
+            # a request waits from its due time to its batch's close: busy
+            # while the server worked on others, then in its batch window
+            opened = [max(t_open, r.arrival_s) for r in batch]
+            busy = [o - r.arrival_s for o, r in zip(opened, batch)]
+            window = [t_launch - t0 - o for o in opened]
+            close_ns = t0_ns + round((t_launch - t0) * 1e9)
+            for r, b, w in zip(batch, busy, window):
+                trace.record("girih.serve.request",
+                             t0_ns + round(r.arrival_s * 1e9), close_ns,
+                             rid=r.rid, busy_s=b, window_s=w)
+            outs, plan_used, source = _launch_batch(
+                head.spec, [r.state for r in batch],
+                [r.coeffs for r in batch], head.n_steps, plan, key[1],
+                registry)
+        t_done = time.perf_counter()
+        launch_s, done = t_done - t_launch, t_done - t0
+        tele.emit("launch", key=str(key), size=len(batch), lane=lane,
+                  launch_s=launch_s, waste=waste, plan_source=source,
+                  queue_depth=queue.depth(), done_s=done, rids=rids,
+                  busy_s=busy, window_s=window)
+        est.observe(key, len(batch), launch_s)
         agg.on_launch(key, len(batch), launch_s,
                       padded_cells=len(batch) * math.prod(key[1]),
-                      real_cells=sum(math.prod(s) for s in shapes),
-                      plan_source=source)
+                      real_cells=sum(math.prod(s) for s in shapes))
         for r, out in zip(batch, outs):
             results[r.rid] = out
             agg.on_done(done - r.arrival_s,
                         deadline_missed=done > r.deadline_s)
-        records.append({"rids": [r.rid for r in batch], "size": len(batch),
+        records.append({"rids": rids, "size": len(batch),
                         "key": key, "done_s": done, "launch_s": launch_s,
                         "lane": lane, "padded_shape": key[1], "waste": waste,
                         "plan": plan_used, "plan_source": source})
-        roll = agg.latency.summary()
-        tele.emit("launch", key=str(key), size=len(batch), lane=lane,
-                  launch_s=launch_s, waste=waste, plan_source=source,
-                  queue_depth=queue.depth(), done_s=done,
-                  p50_ms=roll["p50"] * 1e3, p99_ms=roll["p99"] * 1e3)
-    tele.emit("summary", **agg.snapshot())
+    tele.emit("summary", clock0_s=t0, **agg.snapshot())
     if own_tele:
         tele.close()
     return results, records

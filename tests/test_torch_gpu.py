@@ -593,6 +593,43 @@ def test_ragged_server_equals_per_request_mwd(cuda, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["7pt-var", "25pt-const"])
+def test_every_host_wait_in_mwd_is_a_sync_span(cuda, name):
+    """The waits on the device that torch's sync debug mode reports inside
+    `ops.mwd` are the calls' ``girih.sync`` spans, one for one, and K1's
+    host-side spans nest in the calls' ``girih.mwd``."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import trace
+    from repro_torch.core.mwd import MWDPlan
+    spec, plan = tst.SPECS[name], MWDPlan(d_w=8, n_f=2)
+    state, coeffs = tst.make_problem(spec, (64, 72, 80), seed=0, device=cuda)
+    tops.mwd(spec, state, coeffs, 8, plan=plan)          # build and warm
+    torch.cuda.synchronize()
+    trace.reset()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CPU]):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(2):
+                    tops.mwd(spec, state, coeffs, 8, plan=plan)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    warned = [w for w in seen
+              if "called a synchronizing CUDA operation" in str(w.message)]
+    calls = trace.spans("girih.mwd")
+    syncs = [s for s in trace.spans("girih.sync") if s.under("girih.mwd")]
+    assert len(calls) == 2 and len(syncs) == len(warned) >= 2
+    for step in ("girih.mwd.prepare", "girih.mwd.tables",
+                 "girih.mwd.launch", "girih.mwd.finish"):
+        assert [s.under("girih.mwd") for s in trace.spans(step)] == calls
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", ["7pt-const", "aniso11"])
 @pytest.mark.parametrize("batched", [False, True])
 def test_kernel_on_mask_twins_equals_plain_version(cuda, name, batched):

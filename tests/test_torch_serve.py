@@ -357,23 +357,29 @@ def test_padding_ladder_matches_reference():
         tpad.PaddingLadder("rungs")
 
 
-def test_telemetry_sinks_and_aggregator(tmp_path, capsys):
+@pytest.mark.parametrize("kind", ["jsonl", "stdout"])
+def test_telemetry_sinks_and_aggregator(tmp_path, capsys, kind):
     path = tmp_path / "t.jsonl"
-    sink = ttel.make_telemetry(f"jsonl:{path}")
-    tee = ttel.TeeTelemetry(sink, ttel.make_telemetry("stdout"))
-    tee.emit("launch", size=2, key=(1, 2))
-    tee.close()
-    rec = json.loads(path.read_text().splitlines()[0])
-    assert rec["event"] == "launch" and rec["key"] == [1, 2]
-    assert "serve[launch] size=2" in capsys.readouterr().out
+    sink = ttel.make_telemetry(f"jsonl:{path}" if kind == "jsonl"
+                               else "stdout")
+    sink.emit("launch", size=2, key=(1, 2))
+    sink.close()
+    if kind == "jsonl":
+        rec = json.loads(path.read_text().splitlines()[0])
+        assert rec["event"] == "launch" and rec["key"] == [1, 2]
+    else:
+        assert "serve[launch] size=2" in capsys.readouterr().out
     agg = ttel.Aggregator()
-    agg.on_launch("k", 2, 0.01, padded_cells=10, real_cells=8,
-                  plan_source="default")
+    agg.on_launch("k", 2, 0.01, padded_cells=10, real_cells=8)
+    tops.count_plan("explicit")
     agg.on_done(0.02, deadline_missed=True)
     snap = agg.snapshot()
     assert snap["served"] == 2 and snap["deadline_misses"] == 1
     assert snap["padding_waste"] == pytest.approx(0.25)
     assert snap["plan_cache_hit_rate"] == 0.0
+    tops.count_plan("registry:measured")
+    assert agg.plan_cache_hit_rate == 0.5
+    assert agg.snapshot()["counters"]["plan.explicit"][0] == 1
     with pytest.raises(ValueError):
         ttel.make_telemetry("kafka")
 
