@@ -699,16 +699,17 @@ def k1_ms(spec, state, arrays, scalars, kw, n_steps=MAIN_STEPS) -> float:
 def phase_spec(dev, ptxas: dict) -> dict:
     """The device spec against the card: what the card reports of its SMs,
     threads, registers, L2 and shared memory must equal the spec's figures,
-    and the registers ptxas gave each f32 and f64 K1 instance the K1 model's
-    (models.MWD_REGISTERS); its launch and cluster-barrier costs are
-    measured here beside the spec's."""
+    and the registers ptxas gave each generic f32 and f64 K1 instance the
+    K1 model's (models.MWD_REGISTERS); its launch and cluster-barrier costs
+    are measured here beside the spec's."""
     import torch
     from repro_torch.core import models
     spec = chip()
     for (word, stage, hoist), regs in models.MWD_REGISTERS.items():
         name = {4: "ff", 8: "dd"}.get(word)
         got = [v["registers"] for k, v in ptxas.items()
-               if name and f"mwd_row_kernelI{name}Lb{stage}ELi{hoist}E" in k]
+               if name and f"mwd_row_kernelI{name}Lb{stage}ELi{hoist}ELi0EE"
+               in k]
         check(not name or got == [regs],
               f"ptxas gave K1 (word {word}, stage {stage}, hoist {hoist}) "
               f"{got} registers, the model counts {regs}")
@@ -1204,9 +1205,10 @@ def phase_main_path(tally: Tally, dev, ptxas: dict) -> dict:
         kernel_ms = cuda_ms(lambda: sm.run_kernel(job), TIMING_REPS, restore)
         plain_ms = cuda_ms(lambda: sm.run_plain(job), 1, restore)
         cfg = sm.kernel_config(job)
+        star = sm.star_code(job)         # a star instance is built at hoist 0
         entry = next(v for k, v in ptxas.items()
-                     if f"mwd_row_kernelIffLb{cfg['stage']}ELi{cfg['hoist']}E"
-                     in k)
+                     if f"mwd_row_kernelIffLb{cfg['stage']}ELi"
+                     f"{0 if star else cfg['hoist']}ELi{star}EE" in k)
         n_arr = spec.n_coeff_arrays
         staged = ("no coefficient stream" if n_arr == 0 else
                   f"all {n_arr} streams staged in shared memory"

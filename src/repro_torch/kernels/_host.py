@@ -10,6 +10,7 @@ padding the plain versions use.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -40,6 +41,43 @@ def op_tables(op: ir.StencilOp, scalars, sz: int, sy: int):
                   if scale is not None and scale.kind == "const" else 0.0)
     return (np.asarray(taps, np.int64), np.asarray(groups, np.int32),
             np.asarray(values, np.float64))
+
+
+def _layout(op: ir.StencilOp) -> tuple:
+    """An op's tap offsets in `op.groups` order, its group sizes and its
+    groups' coefficient kinds."""
+    return (tuple(t.offset for _, members in op.groups for t in members),
+            tuple(len(members) for _, members in op.groups),
+            tuple(coeff.kind for coeff, _ in op.groups))
+
+
+@functools.lru_cache(maxsize=None)
+def _star_layouts() -> dict:
+    """K1's compile-time layouts by code (``Star<L>`` of
+    ``csrc/stencil_cell.cuh``): the paper's four operators, the adjoints of
+    the two 7-point ones (every offset negated) and 7pt-const's masked twin
+    (its groups turned to streams)."""
+    from repro_torch.core import padding
+    paper = [ir.OPS[n] for n in ("7pt-const", "7pt-var", "25pt-const",
+                                 "25pt-var")]
+    ops = (paper + [ir.adjoint(op).op for op in paper[:2]]
+           + [padding.masked_variant(paper[0])])
+    return {_layout(op): code for code, op in enumerate(ops, 1)}
+
+
+def star_layout(op: ir.StencilOp) -> int:
+    """The code of K1's star instance for `op` (1-7), or 0 for the generic
+    one.
+
+    An op takes a star instance where its tap offsets, in `op.groups`
+    order, its group sizes and its groups' coefficient kinds are those of a
+    layout K1 compiles in: the paper's operators, their ``+mask`` twins and
+    the 7-point adjoints. The time order, the scale, the streams' slots and
+    the constants stay the op's own. Any other op, a reordered tap list or
+    a const group among streams say, runs the generic instance; both give
+    the same bits.
+    """
+    return _star_layouts().get(_layout(op), 0)
 
 
 def hoist_groups(op: ir.StencilOp) -> int:

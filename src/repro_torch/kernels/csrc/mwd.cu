@@ -31,6 +31,13 @@
 //     dynamic interior. A warp takes one (z, y) row at a time, each lane
 //     MWD_CELLS cells 32 columns apart. Tap offsets wrap with the ring, so
 //     every tap goes through a per-slot offset table built once per CTA;
+//     except in the star instances (kStar > 0: the paper's four operators,
+//     the 7-point adjoints and 7pt-const's masked twin, `Star` in
+//     stencil_cell.cuh), where a row keeps the 2R wrapped ring-plane
+//     offsets of its z taps in registers, the y and x offsets follow from
+//     the window's row stride, and a cell's loads run ahead of its
+//     additions (the table's shared memory stays reserved, so the plan
+//     does not move);
 //   * x-halos: a thread that writes one of the R boundary columns of its
 //     slab also stores the value into the neighbour CTA's halo column
 //     through distributed shared memory, and a cluster barrier
@@ -65,13 +72,15 @@
 // clip, the active mask, the step count) is uniform across the cluster.
 //
 // Arithmetic: `update_cell` of stencil_cell.cuh, shared with K2 and K3 (here
-// at MWD_CELLS cells per lane), which rounds every operation to the
-// accumulator type exactly as the plain PyTorch version
-// (repro_torch.core.ir.sweep_region) does. Built with
+// at MWD_CELLS cells per lane, in its star form in the star instances),
+// which rounds every operation to the accumulator type exactly as the plain
+// PyTorch version (repro_torch.core.ir.sweep_region) does. Built with
 // -fmad=false so no multiply-add is contracted and the two agree bit for
 // bit. The tap and group order is op.groups order.
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "async_copy.cuh"
 #include "stencil_cell.cuh"
@@ -115,12 +124,24 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+// The taps of the cells of a row in ring slot `slot`: its row of the
+// per-slot table, or, in a star instance, the row's `StarTaps`.
+template <int kStar>
+__device__ __forceinline__ auto row_taps(const int* row, int slot, int depth,
+                                         int plane, int wx) {
+  if constexpr (kStar > 0)
+    return StarTaps<kStar>(slot, depth, plane, wx);
+  else
+    return row;
+}
+
 // One diamond row. Grid (n_tiles * cluster, batch), clusters (cluster, 1, 1);
 // the tables are device int32: parity[n_rows], w0/active[n_rows][n_tiles]
 // (padded y), y0/y1[n_rows][n_tiles][T] (padded y). A warp updates one
 // (z, y) row of the CTA's slab at a time, each lane MWD_CELLS cells 32
-// columns apart.
-template <typename S, typename A, bool kStage, int kHoist>
+// columns apart. kStar: 0 for any op (taps through the per-slot table), or
+// the op's compile-time star layout (`Star`).
+template <typename S, typename A, bool kStage, int kHoist, int kStar>
 __global__ void __launch_bounds__(MWD_MAX_THREADS)
 mwd_row_kernel(S* buf_e, S* buf_o, const S* __restrict__ coeff,
                __grid_constant__ const Geo g, __grid_constant__ const Op op,
@@ -162,7 +183,7 @@ mwd_row_kernel(S* buf_e, S* buf_o, const S* __restrict__ coeff,
   S* const grid_o = buf_o + b * g.grid_elems;
   const S* cf = coeff ? coeff + b * g.n_arrays * g.coeff_elems : nullptr;
 
-  for (int i = threadIdx.x; i < D * g.n_taps; i += blockDim.x) {
+  for (int i = threadIdx.x; !kStar && i < D * g.n_taps; i += blockDim.x) {
     const int s = i / g.n_taps, t = i % g.n_taps;
     const int s2 = ((s + td.dz[t]) % D + D) % D;
     tab[i] = (s2 - s) * plane + td.dy[t] * wx + td.dx[t];
@@ -273,7 +294,8 @@ mwd_row_kernel(S* buf_e, S* buf_o, const S* __restrict__ coeff,
           }
           const int z = z0 + zz;
           const int slot = slot0 + zz < D ? slot0 + zz : slot0 + zz - D;
-          const int* taps = tab + slot * g.n_taps;
+          const auto taps = row_taps<kStar>(tab + slot * g.n_taps, slot, D,
+                                            plane, wx);
           const int base = slot * plane + (y - w0) * wx + R;
           const int cslot = cslot0 + zz < Dc ? cslot0 + zz : cslot0 + zz - Dc;
           const S* crow = kStage
@@ -350,19 +372,48 @@ struct Plan {
   int cluster, slab, stage, threads, smem, max_clusters, hoist, static_smem;
 };
 
+// The star instances: f32 and f64 streams in their own precision, every
+// layout, coefficients staged or not (a star update issues every group's
+// coefficient loads together, so `hoist` does not select among them).
+template <typename S, typename A>
+constexpr bool kStarBuilt = std::is_same<S, A>::value
+    && (std::is_same<S, float>::value || std::is_same<S, double>::value);
+
+template <typename S, typename A, bool kStage>
+static void* star_kernel(int star) {
+  switch (star) {
+    case 1: return (void*)mwd_row_kernel<S, A, kStage, 0, 1>;
+    case 2: return (void*)mwd_row_kernel<S, A, kStage, 0, 2>;
+    case 3: return (void*)mwd_row_kernel<S, A, kStage, 0, 3>;
+    case 4: return (void*)mwd_row_kernel<S, A, kStage, 0, 4>;
+    case 5: return (void*)mwd_row_kernel<S, A, kStage, 0, 5>;
+    case 6: return (void*)mwd_row_kernel<S, A, kStage, 0, 6>;
+    case 7: return (void*)mwd_row_kernel<S, A, kStage, 0, 7>;
+  }
+  return nullptr;
+}
+
 // The kernel instance for a plan: coefficients staged or not, and the
 // array-coefficient groups whose loads are hoisted (0, 8 or 16: the fewest
-// that cover the op, so an op without them keeps its registers).
+// that cover the op, so an op without them keeps its registers); or, for
+// an op of a star layout (`star` > 0), that layout's instance. nullptr
+// where no such instance is built.
 template <typename S, typename A>
-static void* kernel_for(int stage, int hoist) {
-  if (stage) {
-    if (hoist == 0) return (void*)mwd_row_kernel<S, A, true, 0>;
-    if (hoist == 8) return (void*)mwd_row_kernel<S, A, true, 8>;
-    return (void*)mwd_row_kernel<S, A, true, 16>;
+static void* kernel_for(int stage, int hoist, int star) {
+  if constexpr (kStarBuilt<S, A>) {
+    if (star)
+      return stage ? star_kernel<S, A, true>(star)
+                   : star_kernel<S, A, false>(star);
   }
-  if (hoist == 0) return (void*)mwd_row_kernel<S, A, false, 0>;
-  if (hoist == 8) return (void*)mwd_row_kernel<S, A, false, 8>;
-  return (void*)mwd_row_kernel<S, A, false, 16>;
+  if (star) return nullptr;
+  if (stage) {
+    if (hoist == 0) return (void*)mwd_row_kernel<S, A, true, 0, 0>;
+    if (hoist == 8) return (void*)mwd_row_kernel<S, A, true, 8, 0>;
+    return (void*)mwd_row_kernel<S, A, true, 16, 0>;
+  }
+  if (hoist == 0) return (void*)mwd_row_kernel<S, A, false, 0, 0>;
+  if (hoist == 8) return (void*)mwd_row_kernel<S, A, false, 8, 0>;
+  return (void*)mwd_row_kernel<S, A, false, 16, 0>;
 }
 
 static int round16(long long v) { return (int)((v + 15) & ~15LL); }
@@ -436,7 +487,7 @@ static int choose(Geo& g, int elem, int smem_max, int smem_sm,
 }
 
 template <typename S, typename A>
-static int plan_launch(Geo& g, int device, Plan& p, void** fn) {
+static int plan_launch(Geo& g, int star, int device, Plan& p, void** fn) {
   int smem_max = 0, smem_sm = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -445,17 +496,18 @@ static int plan_launch(Geo& g, int device, Plan& p, void** fn) {
         &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
   if (err != cudaSuccess) return (int)err;
   p.hoist = g.n_array_groups == 0 ? 0 : g.n_array_groups <= 8 ? 8 : 16;
+  if (kernel_for<S, A>(0, p.hoist, star) == nullptr) return E_TYPES;
   int static_bytes[2];
   for (int stage = 0; stage < 2; ++stage) {
     cudaFuncAttributes fa;
-    err = cudaFuncGetAttributes(&fa, kernel_for<S, A>(stage, p.hoist));
+    err = cudaFuncGetAttributes(&fa, kernel_for<S, A>(stage, p.hoist, star));
     if (err != cudaSuccess) return (int)err;
     static_bytes[stage] = (int)fa.sharedSizeBytes;
   }
   const int bad = choose(g, (int)sizeof(S), smem_max, smem_sm, static_bytes,
                          p);
   if (bad) return bad;
-  void* kernel = kernel_for<S, A>(p.stage, p.hoist);
+  void* kernel = kernel_for<S, A>(p.stage, p.hoist, star);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              p.smem);
@@ -485,12 +537,13 @@ static int plan_launch(Geo& g, int device, Plan& p, void** fn) {
 
 template <typename S, typename A>
 static int launch_rows(void* buf_e, void* buf_o, const void* coeff, Geo g,
-                       const Op& op, const TapDelta& td, const int* tables,
-                       int n_rows, int row_begin, int row_end, int batch,
-                       int device, cudaStream_t stream) {
+                       const Op& op, const TapDelta& td, int star,
+                       const int* tables, int n_rows, int row_begin,
+                       int row_end, int batch, int device,
+                       cudaStream_t stream) {
   Plan p;
   void* fn = nullptr;
-  const int bad = plan_launch<S, A>(g, device, p, &fn);
+  const int bad = plan_launch<S, A>(g, star, device, p, &fn);
   if (bad) return bad;
   const long long n_tab = (long long)n_rows * g.n_tiles;
   const int* parity = tables;
@@ -579,13 +632,17 @@ extern "C" {
 //   taps3[3n]   (dz, dy, dx) of the same taps
 //   groups[3*G+2]  (count, kind, slot) per group, then (scale_kind, slot)
 //   values[G+1] const value per group (0 for array groups), then the scale's
+//   star        0, or the op's star layout (1..STAR_LAYOUTS, `Star`): its
+//               instance runs (f32 and f64 streams in their own precision
+//               only, E_TYPES otherwise; E_OP where the op's taps, group
+//               sizes or coefficient kinds are not the layout's)
 //   tables      parity[n_rows], w0[n_rows*n_tiles], active[n_rows*n_tiles],
 //               y0[n_rows*n_tiles*T], y1[...], all padded y
 // Returns 0, a negative launcher error, or the cudaError_t of a launch.
 int mwd_rows(int stream_type, int acc_type, void* buf_e, void* buf_o,
              const void* coeff, const long long* geo, const long long* taps,
              const int* taps3, int n_taps, const int* groups,
-             const double* values, int n_groups, int time_order,
+             const double* values, int n_groups, int time_order, int star,
              const int* tables, int n_rows, int row_begin, int row_end,
              int batch, int device, void* stream) {
   Op op;
@@ -598,23 +655,24 @@ int mwd_rows(int stream_type, int acc_type, void* buf_e, void* buf_o,
     return E_GEOMETRY;
   TapDelta td;
   if (make_tap_delta(td, taps3, n_taps, g.radius)) return E_OP;
+  if (star && !star_matches(star, op, td, n_taps)) return E_OP;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MWD_LAUNCH(S, A)                                                  \
-  launch_rows<S, A>(buf_e, buf_o, coeff, g, op, td, tables, n_rows,       \
+  launch_rows<S, A>(buf_e, buf_o, coeff, g, op, td, star, tables, n_rows, \
                     row_begin, row_end, batch, device, s)
   MWD_DISPATCH(MWD_LAUNCH)
 #undef MWD_LAUNCH
 }
 
-// The launch configuration mwd_rows would use for `geo`, without launching:
-// out[11] = cluster (CTAs per tile), slab, stage, threads, dynamic shared
-// bytes per CTA, max active clusters, parity ring depth, coefficient ring
-// depth, hoisted coefficient groups, exchange (launched as clusters),
-// static shared bytes of the chosen instance.
+// The launch configuration mwd_rows would use for `geo` and `star`, without
+// launching: out[11] = cluster (CTAs per tile), slab, stage, threads,
+// dynamic shared bytes per CTA, max active clusters, parity ring depth,
+// coefficient ring depth, hoisted coefficient groups, exchange (launched as
+// clusters), static shared bytes of the chosen instance.
 int mwd_config(int stream_type, int acc_type, const long long* geo,
-               int device, int* out) {
+               int star, int device, int* out) {
   Geo g;
   if (read_geo(geo, g)) return E_GEOMETRY;
   cudaError_t err = cudaSetDevice(device);
@@ -623,7 +681,7 @@ int mwd_config(int stream_type, int acc_type, const long long* geo,
   void* fn = nullptr;
   int rc = 0;
 #define MWD_PLAN(S, A)                                                      \
-  (rc = plan_launch<S, A>(g, device, p, &fn),                               \
+  (rc = plan_launch<S, A>(g, star, device, p, &fn),                         \
    rc ? rc : (out[0] = p.cluster, out[1] = p.slab, out[2] = p.stage,        \
               out[3] = p.threads, out[4] = p.smem, out[5] = p.max_clusters, \
               out[6] = g.depth, out[7] = g.cdepth, out[8] = p.hoist,        \

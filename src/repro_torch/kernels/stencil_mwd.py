@@ -23,8 +23,12 @@ Two executors consume the padded parity grids and the tables:
   cluster size, staging and block size (`kernel_config` reports them);
   ``prepare(cluster=c)`` asks for c CTAs a tile instead, the paper's
   thread-group size, which the kernel takes or refuses (`LaunchRefused`),
-  never swapping in another. It takes CUDA tensors only and raises on
-  anything else.
+  never swapping in another. An op of one of the star layouts K1 compiles
+  in (`_host.star_layout`: the paper's operators, their masked twins and
+  the 7-point adjoints) runs that layout's instance in f32 and f64, whose
+  taps are compile-time offsets; any other op, dtype or accumulator runs
+  the generic instance, with the same bits and the same launch plan. It
+  takes CUDA tensors only and raises on anything else.
 * `run_plain` walks the same tables tile by tile in row-major order with
   torch slicing, each span over the whole z extent, on its own padded copy
   of the coefficients. The CPU path uses it; on the card only the chip
@@ -56,10 +60,11 @@ from repro_torch.core.mwd import (K1Geometry, barrier_schedule,
 from repro_torch.kernels import _build
 from repro_torch.kernels._host import (TYPE_CODES, check_inputs,
                                          check_kernel_inputs, edge_pad,
-                                         op_tables, ptr)
+                                         op_tables, ptr, star_layout)
 
 
 LAUNCHES = trace.counter("k1.launches")
+STAR_LAUNCHES = trace.counter("k1.star_launches")   # of a star instance
 SYNCS = trace.counter("syncs")      # host waits on the device
 
 MAX_CLUSTER = 16        # MWD_MAX_CLUSTER of csrc/mwd.cu
@@ -202,11 +207,11 @@ def _mwd_lib() -> ctypes.CDLL:
     lib.mwd_rows.restype = ctypes.c_int
     lib.mwd_rows.argtypes = (
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int]
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.mwd_config.restype = ctypes.c_int
     lib.mwd_config.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p]
-                               + [ctypes.c_int] + [ctypes.c_void_p])
+                               + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.mwd_error_string.restype = ctypes.c_char_p
     lib.mwd_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -251,14 +256,25 @@ def _type_codes(job: Job) -> tuple[int, int]:
     return TYPE_CODES[dt], TYPE_CODES[acc]
 
 
+def star_code(job: Job) -> int:
+    """The star layout K1 runs a prepared job's op in (`_host.star_layout`),
+    or 0 for the generic instance: star instances are built for f32 and f64
+    streams in their own precision."""
+    native = job.acc_dtype is None or job.acc_dtype == job.bufs[0].dtype
+    if not native or job.bufs[0].dtype not in (torch.float32, torch.float64):
+        return 0
+    return star_layout(job.op)
+
+
 def kernel_config(job: Job) -> dict:
     """The launch configuration the kernel picks for a prepared CUDA job.
 
     Keys: cluster (CTAs per tile), slab (x columns per CTA), stage
     (coefficients staged in shared memory), threads, smem_bytes (dynamic
     shared memory per CTA), max_active_clusters, depth and cdepth (ring
-    depths in z rows), hoist (coefficient groups whose loads are issued
-    together), exchange (1: the CTAs of a tile run as a cluster and trade
+    depths in z rows), hoist (coefficient groups whose loads the generic
+    instance issues together; a star instance, `star_code`, issues every
+    group's), exchange (1: the CTAs of a tile run as a cluster and trade
     halos; 0: no update needs a neighbour's halo, so they run alone),
     static_smem (the chosen instance's static shared memory, which the
     opt-in limit holds beside `smem_bytes`). Raises `LaunchRefused` where
@@ -268,7 +284,8 @@ def kernel_config(job: Job) -> dict:
     lib = _mwd_lib()
     out = np.zeros(11, np.int32)
     _check(lib, lib.mwd_config(*_type_codes(job), ptr(_geometry(job)),
-                               dev.index, ptr(out)), "configuration")
+                               star_code(job), dev.index, ptr(out)),
+           "configuration")
     keys = ("cluster", "slab", "stage", "threads", "smem_bytes",
             "max_active_clusters", "depth", "cdepth", "hoist", "exchange",
             "static_smem")
@@ -279,7 +296,7 @@ def run_kernel(job: Job) -> None:
     """Launch the CUDA kernel on the job's CUDA tensors, one launch per row."""
     streams = job.bufs + ([job.coeff] if job.coeff is not None else [])
     dev = check_kernel_inputs("MWD", streams)
-    codes = _type_codes(job)
+    codes, star = _type_codes(job), star_code(job)
     comp, op = job.comp, job.op
     nz_tot, nyp, nxp = job.bufs[0].shape[-3:]
     batch = job.bufs[0].numel() // (nz_tot * nyp * nxp)
@@ -301,10 +318,13 @@ def run_kernel(job: Job) -> None:
             *codes, job.bufs[0].data_ptr(), job.bufs[1].data_ptr(),
             job.coeff.data_ptr() if job.coeff is not None else None,
             ptr(geo), ptr(taps), ptr(taps3), len(taps), ptr(groups),
-            ptr(values), len(op.groups), op.time_order, tables.data_ptr(),
-            comp.n_rows, row_begin, row_end, batch, dev.index, stream)
+            ptr(values), len(op.groups), op.time_order, star,
+            tables.data_ptr(), comp.n_rows, row_begin, row_end, batch,
+            dev.index, stream)
         _check(lib, rc, "launch")
         LAUNCHES.count += row_end - row_begin
+        if star:
+            STAR_LAUNCHES.count += row_end - row_begin
 
     # the span opens before the upload, so no profiler event of the program
     # lands in the drain that follows it

@@ -1017,3 +1017,161 @@ def test_moe_and_mamba_sharded_on_two_ranks_sharing_the_card(cuda):
         for arch, got in rank.items():
             sharded, one = got["ids"]
             assert sharded.tolist() == one.tolist(), arch
+
+
+# ---------------------------------------------------------------------------
+# K1's star instances (compile-time taps) against the plain version
+# ---------------------------------------------------------------------------
+
+# the plans the benchmark's solves resolve at 512^3 f64: (d_w, n_f)
+SOLVE_PLANS = [(8, 2), (4, 4)]
+
+
+def _star_vs_plain(spec, state, arrays, scalars, n_steps, **kw):
+    """The kernel against its plain version, both results; asserts the
+    launches all ran a star instance."""
+    star0, k1 = tkern.STAR_LAUNCHES.count, tkern.LAUNCHES.count
+    got, want = _kernel_vs_plain(spec, state, arrays, scalars, n_steps, **kw)
+    launched = tkern.LAUNCHES.count - k1
+    assert launched > 0
+    assert tkern.STAR_LAUNCHES.count - star0 == launched
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_w,n_f", SOLVE_PLANS)
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("name", list(tst.SPECS))
+def test_star_kernel_bitwise_equals_plain_version(cuda, name, dt, d_w, n_f):
+    """Each paper op in its star instance at the solves' two plans, fused
+    and per-row, on a 512-wide grid (the solves' clusters and slabs)
+    and a narrow odd one."""
+    from repro_torch.kernels import _host
+    spec = tst.SPECS[name]
+    if d_w % (2 * spec.radius):
+        d_w, n_f = 8, 1
+    assert _host.star_layout(spec) > 0
+    for grid in ((2 * spec.radius + 6, 20, 512), (13, 27, 21)):
+        state, coeffs = tst.make_problem(spec, grid, dtype=dt, seed=11,
+                                         device=cuda)
+        arrays, scalars = tir.split_coeffs(spec, coeffs)
+        results = [_star_vs_plain(spec, state, arrays, scalars, 6, d_w=d_w,
+                                  n_f=n_f, fused=fused)
+                   for fused in (True, False)]
+        for got, want in results:
+            assert_bitwise(got, want)
+        assert_bitwise(results[0][0], results[1][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(tst.SPECS))
+def test_star_kernel_batched_equals_per_item_loop(cuda, name):
+    """B = 2 in one launch per row, bitwise equal to two single runs, f64."""
+    spec = tst.SPECS[name]
+    probs = [tst.make_problem(spec, (20, 24, 40), dtype="f64", seed=s,
+                              device=cuda) for s in (12, 13)]
+    splits = [tir.split_coeffs(spec, p[1]) for p in probs]
+    state = tuple(torch.stack([p[0][i] for p in probs]) for i in (0, 1))
+    arrays = (torch.stack([a for a, _ in splits])
+              if spec.n_coeff_arrays else None)
+    star0 = tkern.STAR_LAUNCHES.count
+    got = tkern.mwd_run_batched(spec, state, arrays, splits[0][1], 5)
+    assert tkern.STAR_LAUNCHES.count > star0
+    for b, (p, (a, sc)) in enumerate(zip(probs, splits)):
+        one = tkern.mwd_run(spec, p[0], a, sc, 5)
+        assert_bitwise([g[b] for g in got], one)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["7pt-const", "7pt-var"])
+def test_star_kernel_on_masked_twin_and_adjoint(cuda, name):
+    """The 7-point +mask twin (7pt-const's: its groups turned to streams,
+    a layout of its own) and the adjoint (negated taps) run star instances,
+    bitwise, f64."""
+    from repro_torch.core import padding
+    from repro_torch.kernels import _host
+    spec = tst.SPECS[name]
+    state, coeffs = tst.make_problem(spec, (24, 40, 36), dtype="f64", seed=14,
+                                     device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    adj = tir.adjoint(spec)
+    adj_arrays, adj_scalars = adj.map_coeffs(arrays, scalars)
+    assert _host.star_layout(adj.op) > 4
+    for fused in (True, False):
+        assert_bitwise(*_star_vs_plain(adj.op, state, adj_arrays, adj_scalars,
+                                       4, d_w=8, n_f=2, fused=fused))
+    mop, mstate, packed = padding.pad_batch(spec, [state], [coeffs],
+                                            (32, 48, 40))
+    marrays, mscalars = tir.split_coeffs(mop, packed)
+    assert _host.star_layout(mop) > 0
+    assert_bitwise(*_star_vs_plain(mop, (mstate[0][0], mstate[1][0]),
+                                   marrays[0], mscalars, 6, d_w=8, n_f=2,
+                                   fused=True))
+
+
+@pytest.mark.gpu
+def test_star_kernel_zero_steps_is_the_identity(cuda):
+    spec = tst.SPECS["25pt-const"]
+    state, coeffs = tst.make_problem(spec, (16, 20, 24), dtype="f64", seed=15,
+                                     device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    star0, k1 = tkern.STAR_LAUNCHES.count, tkern.LAUNCHES.count
+    cur, prev = tkern.mwd_run(spec, state, arrays, scalars, 0)
+    assert (tkern.STAR_LAUNCHES.count, tkern.LAUNCHES.count) == (star0, k1)
+    assert torch.equal(cur, state[0])
+
+
+def _user_ops():
+    """Ops that keep the generic instance: a diagonal tap added to
+    7pt-var, 25pt-const's taps reordered, and a radius-2 star."""
+    v = tst.SPECS["7pt-var"]
+    diag = tir.StencilOp("7pt-var-diag", v.taps + (
+        tir.Tap(1, 1, 0, tir.array(7)),))
+    c = tst.SPECS["25pt-const"]
+    order = (c.taps[0],) + tuple(reversed(c.taps[1:]))
+    reordered = tir.StencilOp("25pt-const-rev", order, time_order=2,
+                              scale=c.scale, default_scalars=c.default_scalars)
+    r2 = tir.StencilOp("13pt-var", (tir.Tap(0, 0, 0, tir.array(0)),) + tuple(
+        tir.Tap(*(d * s if a == ax else 0 for a in range(3)), tir.array(ax + 1))
+        for ax in range(3) for d in (1, 2) for s in (-1, 1)))
+    return [diag, reordered, r2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_user_ops_keep_the_generic_instance(cuda, which):
+    """No star layout matches: the launches leave the star counter alone
+    and equal the plain version bitwise."""
+    from repro_torch.kernels import _host
+    spec = _user_ops()[which]
+    assert _host.star_layout(spec) == 0
+    state, coeffs = tst.make_problem(spec, (20, 24, 40), dtype="f64", seed=16,
+                                     device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    star0, k1 = tkern.STAR_LAUNCHES.count, tkern.LAUNCHES.count
+    got, want = _kernel_vs_plain(spec, state, arrays, scalars, 4, d_w=8,
+                                 n_f=2, fused=True)
+    assert tkern.LAUNCHES.count > k1
+    assert tkern.STAR_LAUNCHES.count == star0
+    assert_bitwise(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_w,n_f", SOLVE_PLANS)
+@pytest.mark.parametrize("name", ["7pt-var", "25pt-const"])
+def test_star_instance_keeps_the_launch_plan(cuda, name, d_w, n_f,
+                                             monkeypatch):
+    """At 512 columns in f64 the star instance's configuration equals the
+    generic instance's (same cluster, slab, staging, threads and shared
+    memory), and the star instance uses no more static shared memory."""
+    spec = tst.SPECS[name]
+    if d_w % (2 * spec.radius):
+        d_w, n_f = 8, 1
+    state, coeffs = tst.make_problem(spec, (2 * spec.radius + 6, 20, 512),
+                                     dtype="f64", seed=17, device=cuda)
+    arrays, scalars = tir.split_coeffs(spec, coeffs)
+    job = tkern.prepare(spec, state, arrays, scalars, 4, d_w=d_w, n_f=n_f,
+                        fused=True)
+    star = tkern.kernel_config(job)
+    monkeypatch.setattr(tkern, "star_code", lambda job: 0)
+    assert tkern.kernel_config(job) == star
