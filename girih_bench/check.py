@@ -41,9 +41,10 @@ def state_gap(got, want) -> float:
     return max(block_gap(got[0], want[0]), block_gap(got[1], want[1]))
 
 
-def limits(workload: str) -> dict:
-    """The limits of a cell's compared numbers (``limits/<cell>.json``)."""
-    return json.loads((LIMITS_DIR / f"{workload}.json").read_text())
+def limits(workload: str, root: Path = LIMITS_DIR) -> dict:
+    """The limits of a cell's compared numbers (``<root>/<cell>.json``,
+    the benchmark's ``limits/`` by default)."""
+    return json.loads((Path(root) / f"{workload}.json").read_text())
 
 
 def verdict(numbers: dict, limit: dict) -> tuple[bool, dict]:

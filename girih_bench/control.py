@@ -38,7 +38,7 @@ def reading(name: str, seed: int) -> dict:
     gap = reordered = 0.0
     t0 = time.perf_counter()
     for p in harness.runner(cell.traffic).problems(cell):
-        args = (cell.config["operator"], p.state, p.arrays, p.scalars,
+        args = (ref.name_of(cell.config), p.state, p.arrays, p.scalars,
                 cell.traffic["steps"])
         want = ref.advance(*args)
         got = ref.advance(*args, dtype=low)

@@ -1,9 +1,10 @@
-"""Plain PyTorch time stepping of the paper's operators, from frozen taps.
+"""Plain PyTorch time stepping of stencil operators, from frozen taps.
 
-Independent of the program: the taps below are this file's own copy of the
-paper's Listings (Malas et al. 2015), and nothing here imports the program.
-Grids are ``(z, y, x)``; a step updates the interior ``[R:-R]`` of every
-axis and carries the Dirichlet frame unchanged; the state is
+Independent of the program: each operator's taps are this folder's own
+copy, one file an operator (``operators/<name>.json``; the paper's are
+copied from its Listings, Malas et al. 2015), and nothing here imports the
+program. Grids are ``(z, y, x)``; a step updates the interior ``[R:-R]``
+of every axis and carries the Dirichlet frame unchanged; the state is
 ``(cur, prev)`` and a step maps it to ``(new, cur)``.
 
 Per group of taps that share a coefficient, the taps are summed left to
@@ -15,39 +16,48 @@ dtype.
 
 from __future__ import annotations
 
+import functools
+import json
+from pathlib import Path
+
 import torch
 
-
-def _axis_taps(d: int) -> list[tuple[int, int, int]]:
-    return [(-d, 0, 0), (d, 0, 0), (0, -d, 0), (0, d, 0), (0, 0, -d),
-            (0, 0, d)]
+OPERATORS_DIR = Path(__file__).resolve().with_name("operators")
 
 
-# name -> radius, time order, groups of (coefficient kind, slot, tap
-# offsets), the second-order scale's (kind, slot) or None
-OPERATORS = {
-    "7pt-var": {
-        "radius": 1, "time_order": 1, "scale": None,
-        "groups": [("array", 0, [(0, 0, 0)])]
-        + [("array", 1 + k, [off]) for k, off in enumerate(_axis_taps(1))],
-    },
-    "25pt-const": {
-        "radius": 4, "time_order": 2, "scale": ("array", 0),
-        "groups": [("const", 0, [(0, 0, 0)])]
-        + [("const", d, _axis_taps(d)) for d in range(1, 5)],
-    },
-}
+@functools.lru_cache(maxsize=None)
+def load(name: str, root: Path = OPERATORS_DIR) -> dict:
+    """Operator `name`'s frozen taps, from ``<root>/<name>.json``: its
+    radius, time order, groups of (coefficient kind, slot, tap offsets) and
+    the second-order scale's (kind, slot) or None."""
+    path = Path(root) / f"{name}.json"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"no reference taps for operator {name!r}: {path} not found")
+    op = json.loads(path.read_text())
+    return {"radius": op["radius"], "time_order": op["time_order"],
+            "scale": (None if op["scale"] is None
+                      else tuple(op["scale"])),
+            "groups": tuple((kind, slot, tuple(tuple(o) for o in offs))
+                            for kind, slot, offs in op["groups"])}
+
+
+def name_of(config: dict) -> str:
+    """The reference operator a configuration is judged by: its
+    ``"reference"``, or else its ``"operator"`` (a paper operator's name)."""
+    return config.get("reference", config["operator"])
 
 
 def step(operator: str, cur, prev, arrays, scalars, reverse: bool = False):
-    """One time step: ``(cur, prev) -> (new, cur)``.
+    """One time step of the reference operator named `operator` (see
+    `load`): ``(cur, prev) -> (new, cur)``.
 
     `arrays` is the stacked ``(A, nz, ny, nx)`` coefficient arrays (or
     None), `scalars` the constants as Python floats. `reverse` sums the
     groups and the taps in each in the opposite order: the same update,
     rounded differently, as a sound reordering of the program would be.
     """
-    op = OPERATORS[operator]
+    op = load(operator)
     groups = op["groups"]
     if reverse:
         groups = [(k, slot, offs[::-1]) for k, slot, offs in groups[::-1]]

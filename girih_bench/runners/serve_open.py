@@ -137,7 +137,7 @@ class Runner:
         from repro_torch.launch import serve
         self.cell, self.serve = cell, serve
         tr = cell.traffic
-        self.spec = ir.OPS[cell.config["operator"]]
+        self.spec = ir.resolve_op(cell.config["operator"])
         self.ladder = padding.parse_ladder(tr["ladder"])
         self.tenants = problems(cell)
         # one answer a tenant is kept: copied into buffers made here, so
@@ -217,7 +217,7 @@ class Runner:
         gap = 0.0 if self.answers else check.NOT_FINITE
         for t in sorted({t for t, _ in self.answers}):
             p = self.tenants[t]
-            want = ref.advance(cfg["operator"], p.state, p.arrays,
+            want = ref.advance(ref.name_of(cfg), p.state, p.arrays,
                                p.scalars, steps)
             gap = max([gap] + [check.state_gap(a, want)
                                for j, a in self.answers if j == t])

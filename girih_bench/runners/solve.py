@@ -39,7 +39,7 @@ class Runner:
         from repro_torch.core import ir
         from repro_torch.kernels import ops, stencil_mwd
         self.cell, self.ops, self.launches = cell, ops, stencil_mwd.LAUNCHES
-        self.spec = ir.OPS[cell.config["operator"]]
+        self.spec = ir.resolve_op(cell.config["operator"])
         self.steps = cell.traffic["steps"]
         self.problems = problems(cell)
         self.bound = roofline.call_bound(cell.config, cell.config["grid"],
@@ -97,7 +97,7 @@ class Runner:
             mine = [a for j, a in self.answers if j == k]
             if not mine:
                 continue
-            want = ref.advance(cfg["operator"], p.state, p.arrays,
+            want = ref.advance(ref.name_of(cfg), p.state, p.arrays,
                                p.scalars, self.steps)
             gap = max([gap] + [check.state_gap(a, want) for a in mine])
             del want

@@ -3,6 +3,7 @@ readers, the traced record and the modules a run loads."""
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -11,7 +12,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from girih_bench import harness, roofline
+from girih_bench import check, harness, roofline
+from girih_bench.reference import stencils as ref
 from girih_bench.runners import serve_open
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -75,6 +77,126 @@ def test_new_pieces_are_found_by_name(tmp_path):
     assert cell.config["operator"] == "7pt-var"
     assert harness.runner(cell.traffic).__name__.endswith(".solve")
     assert harness.reader("new_metric.solve", root=tmp_path)({"calls": 7}) == 7
+
+
+# A new operator's pieces, as a later change adds them: a configuration,
+# the reference's frozen taps, a limits file and a cell. One is the paper's
+# 25-point variable-coefficient operator (Listing 4), the other a user
+# operator named by its module path, judged by the taps it states.
+def _star(slot0, axis_slots):
+    """Center tap on array `slot0`, then per (axis, d, slot) the pair
+    (+d, -d) along that axis, sharing array `slot`."""
+    groups = [["array", slot0, [[0, 0, 0]]]]
+    for ax, d, slot in axis_slots:
+        off = [0, 0, 0]
+        off[ax] = d
+        groups.append(["array", slot, [list(off), [-v for v in off]]])
+    return groups
+
+
+NEW_OPERATORS = {
+    "25pt-var": {
+        "config": {
+            "name": "girih-25pt-var-f64", "operator": "25pt-var",
+            "dtype": "float64", "grid": [512, 512, 512],
+            "draw": {"levels": 1, "coeff_arrays": 13, "coeff_scale": 0.02,
+                     "scalars": []},
+            "counts": {"flops_per_lup": 37, "input_grids": 14}},
+        "reference": {
+            "radius": 4, "time_order": 1, "scale": None,
+            "groups": _star(0, [(ax, d, 1 + 4 * ax + d - 1)
+                                for ax in range(3) for d in range(1, 5)])}},
+    "aniso11": {
+        "config": {
+            "name": "aniso11-f64",
+            "operator": "repro_torch.examples.custom_stencil:OP",
+            "reference": "aniso11", "dtype": "float64",
+            "grid": [256, 256, 256],
+            "draw": {"levels": 1, "coeff_arrays": 3, "coeff_scale": 0.08,
+                     "scalars": [0.08, 0.04, 0.02]},
+            "counts": {"flops_per_lup": 16, "input_grids": 4}},
+        "reference": {
+            "radius": 3, "time_order": 1, "scale": None,
+            "groups": _star(0, [(0, 1, 1), (1, 1, 2)])
+            + [["const", d - 1, [[0, 0, d], [0, 0, -d]]] for d in (1, 2, 3)]}},
+}
+
+RUN_IN_COPY = """
+import json, sys
+sys.path[:0] = [{copy!r}, {src!r}]
+from girih_bench import harness
+from repro_torch.kernels import ops
+kw = dict(device="cpu", overrides={{"config": {{"grid": [12, 14, 16]}},
+                                   "traffic": {{"steps": 8}}}})
+sound = harness.run_cell({cell!r}, 5, 0.3, False, **kw)
+ops.mwd = lambda spec, state, coeffs, n_steps, **k: state
+broken = harness.run_cell({cell!r}, 5, 0.3, False, **kw)
+print(json.dumps([sound, broken]))
+"""
+
+
+def add_operator(copy: Path, name: str) -> str:
+    """Adds operator `name`'s files to the benchmark folder `copy` and
+    its cell to the manifest beside it; returns the cell's name."""
+    new = NEW_OPERATORS[name]
+    cfg, cell = new["config"], f"solve-{name}-tiny"
+    for path, obj in ((copy / "configs" / f"{cfg['name']}.json", cfg),
+                      (copy / "reference" / "operators" / f"{name}.json",
+                       new["reference"]),
+                      (copy / "limits" / f"{cell}.json", {"gap": 1e-9})):
+        assert not path.exists()
+        path.write_text(json.dumps(obj))
+    bench = harness.manifest(copy.parent / "BENCHMARK.json")
+    bench["configs"].append({"name": cfg["name"], "source": "test",
+                             "file": f"girih_bench/configs/{cfg['name']}.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": cell, "config": cfg["name"],
+                               "traffic": "solve", "chips": 1, "why": "test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "solve-7pt-var-512" in m.get("workloads", []):
+            m["workloads"].append(cell)
+    (copy.parent / "BENCHMARK.json").write_text(json.dumps(bench))
+    return cell
+
+
+@pytest.mark.parametrize("name", sorted(NEW_OPERATORS))
+def test_a_new_operator_needs_only_new_files(tmp_path, name):
+    """In a copy of the benchmark folder, a configuration, its reference
+    taps, a limits file and a manifest entry make a cell of a new operator:
+    a whole tiny run reads `correct` true, and false with a step that
+    leaves the state unchanged."""
+    from repro_torch.core import ir
+    copy = tmp_path / "girih_bench"
+    shutil.copytree(ROOT / "girih_bench", copy,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    cell = add_operator(copy, name)
+    # the pieces, found through the `root` of each lookup
+    bench = harness.manifest(tmp_path / "BENCHMARK.json")
+    c = harness.make_cell(cell, 5, "cpu", bench, root=copy)
+    op = ir.resolve_op(c.config["operator"])
+    assert c.config["counts"]["flops_per_lup"] == op.flops_per_lup
+    assert c.config["counts"]["input_grids"] == 1 + op.n_coeff_arrays
+    assert check.limits(cell, root=copy / "limits") == {"gap": 1e-9}
+    taps = ref.load(ref.name_of(c.config), root=copy / "reference" /
+                    "operators")
+    assert taps["groups"] == tuple(
+        (k.kind, k.index, tuple(t.offset for t in group))
+        for k, group in op.groups)
+    # whole runs, in a process that imports the copy
+    code = RUN_IN_COPY.format(copy=str(tmp_path), src=str(ROOT / "src"),
+                              cell=cell)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=tmp_path, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path),
+                              "REPRO_TORCH_PLAN_REGISTRY":
+                              str(tmp_path / "plans.json")})
+    assert out.returncode == 0, out.stderr[-3000:]
+    sound, broken = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sound["correct"], sound["check"]
+    assert sound["check"]["gap"]["value"] == 0.0
+    assert "solve_glups" in sound["metrics"]
+    assert not broken["correct"], broken["check"]
 
 
 def test_arrival_schedule_is_the_layouts_and_its_tenants_the_seeds():

@@ -1,21 +1,49 @@
 """The frozen reference against the program's plain oracle, and the
 control against the reference."""
 
+import json
+import re
+from pathlib import Path
+
 import pytest
 import torch
 
-from girih_bench import check, inputs
+from girih_bench import check, harness, inputs
 from girih_bench.reference import stencils as ref
 
-OPERATORS = {"7pt-var": {"levels": 1, "coeff_arrays": 7, "coeff_scale": 0.1,
-                         "scalars": []},
-             "25pt-const": {"levels": 2, "coeff_arrays": 1,
-                            "coeff_scale": 0.1,
-                            "scalars": [0.1, 0.06, 0.045, 0.03, 0.015]}}
+BENCH = Path(__file__).resolve().parents[1]
+CONFIGS = [json.loads(p.read_text())
+           for p in sorted((BENCH / "configs").glob("*.json"))]
+REFERENCES = sorted(p.stem for p in ref.OPERATORS_DIR.glob("*.json"))
 
 
-def problem(operator, dtype, grid, seed):
-    cfg = {"dtype": dtype, "draw": OPERATORS[operator]}
+def _axis_taps(d):
+    return [(-d, 0, 0), (d, 0, 0), (0, -d, 0), (0, d, 0), (0, 0, -d),
+            (0, 0, d)]
+
+
+# the reference's taps as the benchmark first froze them, in its order
+FROZEN = {
+    "7pt-var": {
+        "radius": 1, "time_order": 1, "scale": None,
+        "groups": [("array", 0, [(0, 0, 0)])]
+        + [("array", 1 + k, [off]) for k, off in enumerate(_axis_taps(1))],
+    },
+    "25pt-const": {
+        "radius": 4, "time_order": 2, "scale": ("array", 0),
+        "groups": [("const", 0, [(0, 0, 0)])]
+        + [("const", d, _axis_taps(d)) for d in range(1, 5)],
+    },
+}
+
+
+def paper_ops():
+    from repro_torch.core import ir
+    return ir.OPS
+
+
+def problem(config, dtype, grid, seed):
+    cfg = {"dtype": dtype, "draw": config["draw"]}
     gen = inputs.generator(seed, "cpu")
     arrays, scalars = inputs.coefficients(cfg, grid, gen, "cpu")
     return inputs.Problem(inputs.levels(cfg, grid, gen, "cpu"), arrays,
@@ -23,40 +51,66 @@ def problem(operator, dtype, grid, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("operator", sorted(OPERATORS))
-def test_reference_equals_port_naive(operator, dtype):
+@pytest.mark.parametrize("config", CONFIGS,
+                         ids=[c["operator"] for c in CONFIGS])
+def test_reference_equals_port_naive(config, dtype):
     from repro_torch.core import ir
     from repro_torch.kernels import ops
-    p = problem(operator, dtype, (13, 17, 11), seed=5)
-    want = ops.naive(ir.OPS[operator], p.state, p.coeffs, 6)
-    got = ref.advance(operator, p.state, p.arrays, p.scalars, 6)
+    p = problem(config, dtype, (13, 17, 11), seed=5)
+    want = ops.naive(ir.resolve_op(config["operator"]), p.state, p.coeffs, 6)
+    got = ref.advance(ref.name_of(config), p.state, p.arrays, p.scalars, 6)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("operator", sorted(OPERATORS))
+@pytest.mark.parametrize("operator",
+                         [r for r in REFERENCES if r in paper_ops()])
 def test_reference_taps_are_the_papers(operator):
-    from repro_torch.core import ir
-    op = ir.OPS[operator]
-    mine = [(kind, slot, [tuple(o) for o in offs])
-            for kind, slot, offs in ref.OPERATORS[operator]["groups"]]
-    theirs = [(c.kind, c.index, [t.offset for t in taps])
-              for c, taps in op.groups]
-    assert mine == theirs
-    assert ref.OPERATORS[operator]["radius"] == op.radius
-    assert ref.OPERATORS[operator]["time_order"] == op.time_order
+    op = paper_ops()[operator]
+    mine = ref.load(operator)
+    theirs = tuple((c.kind, c.index, tuple(t.offset for t in taps))
+                   for c, taps in op.groups)
+    assert mine["groups"] == theirs
+    assert mine["radius"] == op.radius
+    assert mine["time_order"] == op.time_order
+    scale = None if op.scale is None else (op.scale.kind, op.scale.index)
+    assert mine["scale"] == scale
 
 
-@pytest.mark.parametrize("operator", sorted(OPERATORS))
-def test_control_fails_the_limit(operator):
+@pytest.mark.parametrize("operator", sorted(FROZEN))
+def test_reference_files_hold_the_frozen_taps(operator):
+    """The files hold the taps the benchmark first froze, groups and the
+    taps in each in the same order (the reference sums in listed order)."""
+    want = FROZEN[operator]
+    got = ref.load(operator)
+    assert got["radius"] == want["radius"]
+    assert got["time_order"] == want["time_order"]
+    assert got["scale"] == want["scale"]
+    assert [(k, slot, list(offs)) for k, slot, offs in got["groups"]] == \
+        want["groups"]
+
+
+def test_unknown_operator_names_the_file_it_looked_for(tmp_path):
+    state = (torch.zeros(4, 4, 4), torch.zeros(4, 4, 4))
+    path = ref.OPERATORS_DIR / "no-such-op.json"
+    with pytest.raises(FileNotFoundError, match=re.escape(str(path))):
+        ref.advance("no-such-op", state, None, (), 1)
+    with pytest.raises(FileNotFoundError,
+                       match=re.escape(str(tmp_path / "7pt-var.json"))):
+        ref.load("7pt-var", root=tmp_path)
+
+
+@pytest.mark.parametrize("config", CONFIGS,
+                         ids=[c["operator"] for c in CONFIGS])
+def test_control_fails_the_limit(config):
     """The reference in float32 reads a gap far above the limit of every
     cell; the reference against itself reads 0."""
-    p = problem(operator, "float64", (24, 20, 28), seed=9)
-    want = ref.advance(operator, p.state, p.arrays, p.scalars, 8)
-    low = ref.advance(operator, p.state, p.arrays, p.scalars, 8,
+    name = ref.name_of(config)
+    p = problem(config, "float64", (24, 20, 28), seed=9)
+    want = ref.advance(name, p.state, p.arrays, p.scalars, 8)
+    low = ref.advance(name, p.state, p.arrays, p.scalars, 8,
                       dtype=torch.float32)
-    limit = max(check.limits(w)["gap"] for w in (
-        "solve-7pt-var-512", "solve-25pt-const-512",
-        "serve-7pt-var-ragged256", "serve-25pt-const-exact256"))
+    limit = max(check.limits(w["name"])["gap"]
+                for w in harness.manifest()["workloads"])
     assert check.state_gap(low, want) > 10 * limit
     assert check.state_gap(want, want) == 0.0
 
